@@ -112,7 +112,7 @@ def _train_minibatch(args, model, outdir, start_epoch=0):
         archive = bio.Archive(bar_path)
     n_utts = len(archive)
     # data parallel composes with minibatches: the batch rows shard over
-    # the mesh, statistics psum over ICI, every device applies the same
+    # the mesh, statistics psum over the mesh, every device applies the same
     # update.  Batch size is rounded up so shards stay equal.
     n_dev = len(jax.devices())
     use_dp = n_dev > 1 and not args.single_device
@@ -173,7 +173,7 @@ def _train_minibatch(args, model, outdir, start_epoch=0):
         batch_elbos = []  # device scalars: forcing per batch would
         # serialize H2D upload against compute; keeping them lazy lets
         # jax's async dispatch overlap the next batch's transfer with
-        # the current step (matters most on remote/tunneled devices)
+        # the current step
         epoch_acc = None
         for data, mask in loader:
             n_valid = data.shape[0]

@@ -19,7 +19,7 @@ live in the same P-dimensional space as the prior's natural parameters, so
 * the VB M-step is plain addition:  ``η_post = η_prior + Σ_t r_t s(x_t)``,
 * the expected log-likelihood is one matmul: ``s(X) @ E[T(θ)].T``.
 
-This makes every hot path an MXU-shaped contraction by construction.
+This makes every hot path a dense matrix contraction by construction.
 """
 
 from __future__ import annotations

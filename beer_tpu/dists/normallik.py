@@ -7,7 +7,7 @@ natural parameters* (see each prior module's docstring).  With that
 alignment:
 
 * expected log-likelihood = ``stats @ E[T(θ)].T  −  (D/2) log 2π``
-  — one (T, P) @ (P, K) matmul, ideal MXU shape;
+  — one dense (T, P) @ (P, K) matmul;
 * accumulation = ``resps.T @ stats`` — another matmul;
 * VB update = plain addition of the accumulated vector to the prior.
 

@@ -109,8 +109,11 @@ def archive_geometry(path):
         with zipfile.ZipFile(path) as zf:
             for name in zf.namelist():
                 with zf.open(name) as fh:
-                    version = np.lib.format.read_magic(fh)
-                    shape, _, _ = np.lib.format._read_array_header(fh, version)
+                    fmt = np.lib.format
+                    read_header = (fmt.read_array_header_1_0
+                                   if fmt.read_magic(fh) == (1, 0)
+                                   else fmt.read_array_header_2_0)
+                    shape, _, _ = read_header(fh)
                 lengths.append(shape[0])
                 dim = shape[-1] if len(shape) > 1 else 1
         lengths = np.asarray(lengths)

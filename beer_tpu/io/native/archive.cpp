@@ -1,6 +1,6 @@
 // Native feature-archive reader: mmap + multithreaded padded-batch fill.
 //
-// The TPU-native runtime counterpart of the reference's per-utterance
+// The runtime counterpart of the reference's per-utterance
 // numpy loading (SURVEY.md: the reference recipes stream features from
 // disk per job).  Training consumes fixed-shape padded batches; building
 // them in Python costs a per-utterance copy through the interpreter.

@@ -7,8 +7,9 @@ DiscreteLatentModel).  The reference's three-method contract is kept —
 * ``expected_log_likelihood(stats)`` stats → per-frame log-likelihood,
 * ``accumulate(stats, ...)``         stats (+ cache) → stats pytree,
 
-— but models here are frozen **flax.struct dataclasses** (pytrees), so a
-whole model jits, vmaps, shards, and checkpoints as a value.  Training
+— but models here are frozen **dataclass pytrees**
+(:mod:`beer_tpu.utils.struct`), so a whole model jits, vmaps, shards,
+and checkpoints as a value.  Training
 state never hides inside the object: ``infer`` returns an explicit cache
 (responsibilities / state posteriors) that ``accumulate`` consumes, and
 ``vb_update`` returns a *new* model.
@@ -23,7 +24,8 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import jax.numpy as jnp
-from flax import struct
+
+from beer_tpu.utils import struct
 
 
 @struct.dataclass

@@ -17,11 +17,11 @@ from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from beer_tpu import dists
 from beer_tpu.models.basemodel import Model
 from beer_tpu.models.parameters import BayesianParameter
+from beer_tpu.utils import struct
 
 
 @struct.dataclass

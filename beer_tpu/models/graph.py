@@ -18,7 +18,8 @@ from typing import Dict, List, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from beer_tpu.utils import struct
 
 LOG_ZERO = -1e30
 
@@ -49,11 +50,10 @@ class CompiledGraph:
 
         Supports per-utterance graphs: ``pdf_ids`` (B, S) with
         ``per_pdf_llh`` (B, T, n_pdfs).  That case is a selection
-        *matmul*: a strided gather along the minor (lane) axis of a
-        (B, T, P) array is a per-element op on TPU, orders of magnitude
-        slower than the equivalent batched MXU contraction.  HIGHEST
-        precision keeps the selection bit-exact (one-hot rows pick
-        single values; a default-precision pass bf16-rounds the llh).
+        *matmul* (one batched contraction rather than a strided gather
+        along the minor axis of a (B, T, P) array).  HIGHEST precision
+        keeps the selection bit-exact (one-hot rows pick single values;
+        a default-precision pass rounds the llh to bf16 or TF32).
         """
         if self.pdf_ids.ndim == 2:
             import jax

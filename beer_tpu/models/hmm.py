@@ -26,18 +26,12 @@ from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 from jax.scipy.special import digamma, gammaln
 
 from beer_tpu.models.basemodel import DiscreteLatentModel
 from beer_tpu.models.graph import LOG_ZERO, CompiledGraph, Graph
 from beer_tpu.ops import semiring_scan
-
-
-def _lane_major(b: int, s: int) -> bool:
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.use_lane_major(b, s)
+from beer_tpu.utils import struct
 
 
 def _promote(x: jnp.ndarray) -> jnp.ndarray:
@@ -117,183 +111,8 @@ class HMM(DiscreteLatentModel):
         per_pdf = self.modelset.expected_log_likelihood(stats)  # (B, T, n_pdfs)
         return self.graph.expand_llh(per_pdf)
 
-    def _fused_estep_ok(self) -> bool:
-        """Checkpointed fused E-step kernels (full (S, S) ξ variant):
-        TPU + one shared (S, S) transition matrix.  Per-utterance
-        ``pdf_ids`` / ``log_final`` (the shared transcription-graph fast
-        path, ``graph.transcription_graphs(shared=True)``) are fine —
-        the kernels take per-row init/final vectors and the pdf map is
-        a batched selection matmul; only per-utterance (B, S, S)
-        transition MATRICES fall back to the general batched path."""
-        from beer_tpu.ops import pallas_scan
-
-        return (
-            pallas_scan.available()
-            and self.graph.log_trans.ndim == 2
-        )
-
-    def _stats_path_ok(self, b: int, s: int) -> bool:
-        """The stats-streaming (fused-ELLH + in-VMEM accumulation)
-        lane-major path: needs the diagonal reduced-stats affine form
-        (ellh_matrix / accumulate_from_moments) and a SHARED 1-D pdf
-        map + init/final (per-utterance maps can't fold into W or be
-        recovered from the batch-summed moments)."""
-        from beer_tpu.models.normal import NormalSet
-        from beer_tpu.ops import pallas_scan
-
-        return (
-            pallas_scan.FUSE_ACC
-            and pallas_scan.FUSE_ELLH
-            and _lane_major(b, s)
-            and self.graph.pdf_ids.ndim == 1
-            and self.graph.log_init.ndim == 1
-            and self.graph.log_final.ndim == 1
-            and type(self.modelset) is NormalSet
-            and self.modelset.cov_type == "diagonal"
-            and not self.modelset.fused
-        )
-
-    def _infer_fused_lm_stats(self, stats, mask, log_trans):
-        """Stats-streaming lane-major forward: llh = W_state @ stats +
-        bias computed in VMEM (the 1-D pdf selection folds into W's
-        rows: ``W_state = ellh_W.T[pdf_ids]``), so neither the per-pdf
-        nor the per-state llh array ever exists in HBM."""
-        stats_lm = jnp.transpose(stats, (1, 2, 0))      # (T, P, B)
-        t_len, _, b = stats_lm.shape
-        s = self.graph.n_states
-        dt = stats_lm.dtype
-        if mask is None:
-            mask = jnp.ones((b, t_len), dt)
-        t_pad = semiring_scan.scan_time_pad(t_len, b, s)
-        if t_pad != t_len:
-            stats_lm = jnp.concatenate([
-                stats_lm,
-                jnp.zeros((t_pad - t_len,) + stats_lm.shape[1:], dt),
-            ], axis=0)
-            mask = jnp.concatenate([
-                mask, jnp.zeros((b, t_pad - t_len), mask.dtype)
-            ], axis=1)
-        w_pk, bias_k = self.modelset.ellh_matrix()      # (P, n_pdfs)
-        w_lm = w_pk.T[self.graph.pdf_ids].astype(dt)    # (S, P)
-        bias_lm = bias_k[self.graph.pdf_ids].astype(dt)
-        trans = jnp.exp(log_trans)
-        init_lm = jnp.broadcast_to(
-            jnp.exp(jnp.maximum(self.graph.log_init, LOG_ZERO))[:, None],
-            (s, b),
-        ).astype(dt)
-        final_lm = jnp.broadcast_to(
-            jnp.exp(jnp.maximum(self.graph.log_final, LOG_ZERO))[:, None],
-            (s, b),
-        ).astype(dt)
-        from beer_tpu.ops import pallas_scan
-
-        alphas = norms = ckpts = None
-        if pallas_scan.use_store_alpha(t_pad, s, b):
-            # stored-α̂ route: the accumulate kernel skips its serial
-            # forward recompute (pallas_scan STORE_ALPHA)
-            log_z, alphas, norms = semiring_scan.hmm_logz_stats_alpha_lm(
-                stats_lm, w_lm, bias_lm, trans, init_lm, final_lm, mask
-            )
-        else:
-            log_z, ckpts = semiring_scan.hmm_logz_stats_lm(
-                stats_lm, w_lm, bias_lm, trans, init_lm, final_lm, mask
-            )
-        return log_z, {
-            "stats_lm": stats_lm,
-            "w_lm": w_lm,
-            "bias_lm": bias_lm,
-            "ckpts": ckpts,
-            "alphas": alphas,
-            "norms": norms,
-            "mask": mask,
-            "final_lm": final_lm,
-            "log_trans": log_trans,
-        }
-
     def infer(self, stats: jnp.ndarray, mask: Optional[jnp.ndarray] = None):
         log_trans = self._effective_log_trans()
-        if self._fused_estep_ok():
-            if self._stats_path_ok(stats.shape[0], self.graph.n_states):
-                return self._infer_fused_lm_stats(stats, mask, log_trans)
-            # same checkpointed scan pipeline as PhoneLoop.infer, with
-            # full-ξ smoothing in accumulate (hmm_estep_ckpt); pad time
-            # ONCE on the per-pdf llh so neither pass re-pads
-            per_pdf_tm = jnp.swapaxes(
-                self.modelset.expected_log_likelihood(stats), 0, 1
-            )                                            # (T, B, P)
-            t_len, b = per_pdf_tm.shape[:2]
-            s = self.graph.n_states
-            dt = per_pdf_tm.dtype
-            if mask is None:
-                mask = jnp.ones((b, t_len), dt)
-            t_pad = semiring_scan.scan_time_pad(t_len, b, s)
-            if t_pad != t_len:
-                per_pdf_tm = jnp.concatenate([
-                    per_pdf_tm,
-                    jnp.zeros((t_pad - t_len,) + per_pdf_tm.shape[1:], dt),
-                ], axis=0)
-                mask = jnp.concatenate([
-                    mask, jnp.zeros((b, t_pad - t_len), mask.dtype)
-                ], axis=1)
-            if self.graph.pdf_ids.ndim == 2:
-                # per-utterance pdf maps (shared transcription graphs):
-                # batched selection matmul in the time-major layout
-                one_hot = jax.nn.one_hot(
-                    self.graph.pdf_ids, self.graph.n_pdfs, dtype=dt
-                )                                        # (B, S, P)
-                llh_tm = jnp.einsum(
-                    "tbp,bsp->tbs", per_pdf_tm, one_hot,
-                    precision=jax.lax.Precision.HIGHEST,
-                )
-            else:
-                llh_tm = self.graph.expand_llh(per_pdf_tm)  # (T', B, S)
-            tiny = jnp.finfo(dt).tiny
-            trans = jnp.exp(log_trans)
-            # (S,) shared or (B, S) per-utterance init/final both
-            # broadcast to the kernels' per-row (b, s) vectors
-            init_vec = jnp.broadcast_to(
-                jnp.exp(jnp.maximum(self.graph.log_init, LOG_ZERO)), (b, s)
-            ).astype(dt)
-            final_vec = jnp.broadcast_to(
-                jnp.exp(jnp.maximum(self.graph.log_final, LOG_ZERO)), (b, s)
-            ).astype(dt)
-            if _lane_major(b, s):
-                # (S, B) orientation: at small state counts the
-                # batch-major tiles waste most of their 128-lane groups
-                # (see pallas_scan.LANE_MAJOR); the llh/γ transposes
-                # are cheap exactly when S is small
-                llh_lm = jnp.swapaxes(llh_tm, 1, 2)      # (T', S, B)
-                final_lm = final_vec.T
-                ckpts, a_last, logz_base = semiring_scan.forward_llh_ckpt_lm(
-                    llh_lm, trans, init_vec.T, mask
-                )
-                log_z = logz_base + jnp.log(
-                    jnp.maximum((a_last * final_lm).sum(0), tiny)
-                )
-                log_z = log_z * (mask.sum(-1) > 0)
-                return log_z, {
-                    "llh_lm": llh_lm,
-                    "ckpts": ckpts,
-                    "mask": mask,
-                    "final_lm": final_lm,
-                    "log_trans": log_trans,
-                }
-            ckpts, a_last, logz_base = semiring_scan.forward_llh_ckpt(
-                llh_tm, trans, init_vec, mask
-            )
-            log_z = logz_base + jnp.log(
-                jnp.maximum((a_last * final_vec).sum(-1), tiny)
-            )
-            log_z = log_z * (mask.sum(-1) > 0)
-            # "ckpts" in cache discriminates the fused path — key
-            # presence is static under jit, a True leaf would be traced
-            return log_z, {
-                "llh_tm": llh_tm,
-                "ckpts": ckpts,
-                "mask": mask,
-                "final_vec": final_vec,
-                "log_trans": log_trans,
-            }
         llh_states = self._state_llh(stats)
         fb = semiring_scan.forward_backward_probs(
             llh_states,
@@ -314,116 +133,7 @@ class HMM(DiscreteLatentModel):
             "log_trans": log_trans,
         }
 
-    def _accumulate_fused(self, stats: jnp.ndarray, cache) -> Dict[str, Any]:
-        """Full-ξ checkpointed kernel: γ + Σ_t weight·α̂⊗ŵ in one pass
-        (no α̂/β̂/w streams); transition counts = xi_raw ⊙ exp(log A)."""
-        sg = jax.lax.stop_gradient
-        if "w_lm" in cache:
-            # stats-streaming path: γ never materialized — fold the
-            # shared 1-D pdf map into the kernel's (S, P) moments
-            if cache.get("alphas") is not None:
-                acc2, counts, _g0, xi_raw = \
-                    semiring_scan.hmm_estep_ckpt_acc_alpha_lm(
-                        sg(cache["stats_lm"]),
-                        sg(jnp.exp(cache["log_trans"])),
-                        sg(cache["final_lm"]), sg(cache["mask"]),
-                        sg(cache["w_lm"]), sg(cache["bias_lm"]),
-                        sg(cache["alphas"]), sg(cache["norms"]),
-                    )
-            else:
-                acc2, counts, _g0, xi_raw = \
-                    semiring_scan.hmm_estep_ckpt_acc_lm(
-                        sg(cache["stats_lm"]), sg(cache["ckpts"]),
-                        sg(jnp.exp(cache["log_trans"])),
-                        sg(cache["final_lm"]), sg(cache["mask"]),
-                        sg(cache["w_lm"]), sg(cache["bias_lm"]),
-                    )
-            dt = cache["stats_lm"].dtype
-            n_pdfs = self.graph.n_pdfs
-            s = acc2.shape[0]
-            identity_pdfs = False
-            if n_pdfs == s:
-                try:                 # concrete (non-traced) pdf_ids only
-                    import numpy as _np
-
-                    identity_pdfs = bool(
-                        (_np.asarray(self.graph.pdf_ids)
-                         == _np.arange(s)).all())
-                except Exception:
-                    identity_pdfs = False
-            if identity_pdfs:
-                acc_pdf, counts_pdf = acc2, counts
-            else:
-                one_hot = jax.nn.one_hot(
-                    self.graph.pdf_ids, n_pdfs, dtype=acc2.dtype)  # (S, P̃)
-                acc_pdf = jnp.matmul(
-                    one_hot.T, acc2,
-                    precision=jax.lax.Precision.HIGHEST)
-                counts_pdf = one_hot.T @ counts
-            acc = {"modelset": self.modelset.accumulate_from_moments(
-                acc_pdf.astype(dt), counts_pdf.astype(dt))}
-            if self.trans_alpha_post is not None:
-                acc["trans"] = xi_raw * jnp.exp(sg(cache["log_trans"]))
-            return acc
-        if "llh_lm" in cache:
-            gamma_lm, xi_raw = semiring_scan.hmm_estep_ckpt_lm(
-                sg(cache["llh_lm"]), sg(cache["ckpts"]),
-                sg(jnp.exp(cache["log_trans"])), sg(cache["final_lm"]),
-                sg(cache["mask"]),
-            )
-            gamma_tm = jnp.swapaxes(gamma_lm, 1, 2)      # (T', B, S)
-        else:
-            gamma_tm, xi_raw = semiring_scan.hmm_estep_ckpt(
-                sg(cache["llh_tm"]), sg(cache["ckpts"]),
-                sg(jnp.exp(cache["log_trans"])), sg(cache["final_vec"]),
-                sg(cache["mask"]),
-            )
-        t_pad, b, s = gamma_tm.shape
-        identity_pdfs = False
-        if self.graph.pdf_ids.ndim == 1 and self.graph.n_pdfs == s:
-            try:                     # concrete (non-traced) pdf_ids only
-                import numpy as _np
-
-                identity_pdfs = bool(
-                    (_np.asarray(self.graph.pdf_ids) == _np.arange(s)).all()
-                )
-            except Exception:
-                identity_pdfs = False
-        if identity_pdfs:
-            pdf_post = gamma_tm                    # identity pdf map
-        elif self.graph.pdf_ids.ndim == 2:
-            one_hot = jax.nn.one_hot(
-                self.graph.pdf_ids, self.graph.n_pdfs, dtype=gamma_tm.dtype
-            )                                      # (B, S, P)
-            pdf_post = jnp.einsum(
-                "tbs,bsp->tbp", gamma_tm, one_hot,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        else:
-            one_hot = jax.nn.one_hot(
-                self.graph.pdf_ids, self.graph.n_pdfs, dtype=gamma_tm.dtype
-            )
-            pdf_post = jnp.einsum(
-                "tbs,sp->tbp", gamma_tm, one_hot,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-        flat_resps = pdf_post.reshape(-1, self.graph.n_pdfs)
-        stats_tm = jnp.swapaxes(stats, 0, 1)
-        if stats_tm.shape[0] != t_pad:             # mirror infer's pad
-            stats_tm = jnp.concatenate([
-                stats_tm,
-                jnp.zeros((t_pad - stats_tm.shape[0],) + stats_tm.shape[1:],
-                          stats_tm.dtype),
-            ], axis=0)
-        flat_stats = stats_tm.reshape((-1,) + stats_tm.shape[2:])
-        acc = {"modelset": self.modelset.accumulate(flat_stats, flat_resps)}
-        if self.trans_alpha_post is not None:
-            acc["trans"] = xi_raw * jnp.exp(sg(cache["log_trans"]))
-        return acc
-
     def accumulate(self, stats: jnp.ndarray, cache: Dict[str, Any]) -> Dict[str, Any]:
-        if "ckpts" in cache:
-            return self._accumulate_fused(stats, cache)
         post = cache["posteriors"]  # (B, T, S)
         # state → pdf posteriors (states sharing a pdf sum together)
         one_hot = jax.nn.one_hot(self.graph.pdf_ids, self.graph.n_pdfs, dtype=post.dtype)
@@ -470,9 +180,7 @@ class HMM(DiscreteLatentModel):
                    mask: Optional[jnp.ndarray] = None) -> jnp.ndarray:
         """Per-frame state occupancies γ (B, T, S).
 
-        Diagnostic entry point (reference `DiscreteLatentModel.posteriors`)
-        — always runs the general scan path, which returns γ directly;
-        the fused TPU path defers γ to the accumulate-side kernel."""
+        Diagnostic entry point (reference `DiscreteLatentModel.posteriors`)."""
         stats = self.sufficient_statistics(data)
         fb = semiring_scan.forward_backward_probs(
             self._state_llh(stats),
@@ -485,37 +193,6 @@ class HMM(DiscreteLatentModel):
 
     def expected_transition_counts(self, cache: Dict[str, Any]) -> jnp.ndarray:
         """E[#transitions i→j] summed over the batch, (S, S)."""
-        if "ckpts" in cache:  # fused cache: run the full-ξ epilogue kernel
-            sg = jax.lax.stop_gradient
-            if cache.get("alphas") is not None:
-                _, _, _, xi_raw = \
-                    semiring_scan.hmm_estep_ckpt_acc_alpha_lm(
-                        sg(cache["stats_lm"]),
-                        sg(jnp.exp(cache["log_trans"])),
-                        sg(cache["final_lm"]), sg(cache["mask"]),
-                        sg(cache["w_lm"]), sg(cache["bias_lm"]),
-                        sg(cache["alphas"]), sg(cache["norms"]),
-                    )
-            elif "w_lm" in cache:
-                _, _, _, xi_raw = semiring_scan.hmm_estep_ckpt_acc_lm(
-                    sg(cache["stats_lm"]), sg(cache["ckpts"]),
-                    sg(jnp.exp(cache["log_trans"])),
-                    sg(cache["final_lm"]), sg(cache["mask"]),
-                    sg(cache["w_lm"]), sg(cache["bias_lm"]),
-                )
-            elif "llh_lm" in cache:
-                _, xi_raw = semiring_scan.hmm_estep_ckpt_lm(
-                    sg(cache["llh_lm"]), sg(cache["ckpts"]),
-                    sg(jnp.exp(cache["log_trans"])),
-                    sg(cache["final_lm"]), sg(cache["mask"]),
-                )
-            else:
-                _, xi_raw = semiring_scan.hmm_estep_ckpt(
-                    sg(cache["llh_tm"]), sg(cache["ckpts"]),
-                    sg(jnp.exp(cache["log_trans"])),
-                    sg(cache["final_vec"]), sg(cache["mask"]),
-                )
-            return xi_raw * jnp.exp(sg(cache["log_trans"]))
         # use the cache's effective log-trans (includes the learned
         # Dirichlet posterior when learn_transitions=True) — ξ must be
         # computed under the same matrix that produced the fb cache
@@ -533,14 +210,10 @@ class HMM(DiscreteLatentModel):
                 and log_trans.ndim == 2 and log_trans.shape[0] >= 64):
             # shared left-to-right graph (forced alignment): the matrix
             # is diagonal + first superdiagonal — decode through the
-            # banded (max,+) route (O(B·S) per step / Pallas kernels on
-            # TPU) with an empty loop-back family.  Exact: learned
-            # transitions only reweight the existing arcs.  Gated on
-            # S >= 64: measured on-chip at S=36 the dense (B, S, S)
-            # scan is FASTER (52.9M vs 46.4M frames/s — the kernels
-            # waste 1 - S/128 of every vreg at small S), while at
-            # S=150 the kernels win 8.4x (tools/exp_align_bench.py,
-            # exp_decode_bench.py).
+            # banded (max,+) route (O(B·S) per step instead of a
+            # (B, S, S) candidate tensor) with an empty loop-back
+            # family.  Exact: learned transitions only reweight the
+            # existing arcs.  Small graphs keep the dense scan.
             s = log_trans.shape[0]
             ids = jnp.arange(s - 1)
             a_self = jnp.exp(jnp.diagonal(log_trans))

@@ -17,12 +17,12 @@ from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from beer_tpu.models.basemodel import DiscreteLatentModel
 from beer_tpu.models.categorical import Categorical
 from beer_tpu.models.modelset import ModelSet
 from beer_tpu.models.normal import NormalSet
+from beer_tpu.utils import struct
 
 
 @struct.dataclass
@@ -49,33 +49,7 @@ class Mixture(DiscreteLatentModel):
     def sufficient_statistics(self, data: jnp.ndarray) -> jnp.ndarray:
         return self.modelset.sufficient_statistics(data)
 
-    def _fused_gmm(self) -> bool:
-        """Single-kernel E-step route: full-cov NormalSet on TPU whose
-        stats stay as raw frames (``modelset.fused``) under any weight
-        model exposing ``expected_log_weights`` — llh, responsibilities,
-        and the γᵀ-weighted statistics all stay in VMEM
-        (:func:`beer_tpu.ops.stats_kernels.fused_gmm_estep`).  The
-        runtime backend check keeps a TPU-created checkpoint usable on
-        CPU (static ``fused`` survives the restore)."""
-        from beer_tpu.ops import stats_kernels
-
-        return bool(getattr(self.modelset, "fused", False)) \
-            and stats_kernels.on_tpu()
-
     def infer(self, stats: jnp.ndarray, mask: jnp.ndarray | None = None):
-        if self._fused_gmm():
-            from beer_tpu.ops import stats_kernels
-
-            ms = self.modelset
-            e_stats = ms.means_precisions.expected_sufficient_statistics()
-            log_w = self.categorical.expected_log_weights()
-            flat = stats.reshape(-1, ms.dim)
-            llh, acc, counts = stats_kernels.fused_gmm_estep(
-                flat, e_stats, log_w, ms.dim, mask=mask
-            )
-            return llh.reshape(stats.shape[:-1]), {
-                "gmm_acc": acc, "gmm_counts": counts,
-            }
         per_comp = self.modelset.expected_log_likelihood(stats)  # (T, K)
         joint = per_comp + self.categorical.expected_log_weights()
         llh = jax.scipy.special.logsumexp(joint, axis=-1)
@@ -86,13 +60,6 @@ class Mixture(DiscreteLatentModel):
         return llh, {"resps": resps}
 
     def accumulate(self, stats: jnp.ndarray, cache: Dict[str, Any]) -> Dict[str, Any]:
-        if "gmm_acc" in cache:
-            return {
-                "categorical": self.categorical.accumulate_counts(
-                    cache["gmm_counts"]
-                ),
-                "modelset": {"means_precisions": cache["gmm_acc"]},
-            }
         resps = cache["resps"]
         counts = resps.reshape(-1, resps.shape[-1]).sum(0)
         return {
@@ -101,8 +68,7 @@ class Mixture(DiscreteLatentModel):
         }
 
     def posteriors(self, data: jnp.ndarray) -> jnp.ndarray:
-        """(T, K) responsibilities — computed directly (the fused E-step
-        never materializes them, so ``infer``'s cache has none)."""
+        """(T, K) responsibilities."""
         stats = self.sufficient_statistics(data)
         per_comp = self.modelset.expected_log_likelihood(stats)
         joint = per_comp + self.categorical.expected_log_weights()

@@ -19,9 +19,9 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import jax.numpy as jnp
-from flax import struct
 
 from beer_tpu.models.basemodel import Model
+from beer_tpu.utils import struct
 
 
 @struct.dataclass
@@ -52,18 +52,14 @@ class JointModelSet(ModelSet):
         # full-cov + diag-cov mix would be silently wrong — reject any
         # detectable layout mismatch up front.
         sigs = [
-            (
-                getattr(s, "cov_type", None),
-                getattr(s, "dim", None),
-                getattr(s, "fused", None),
-            )
+            (getattr(s, "cov_type", None), getattr(s, "dim", None))
             for s in sets
         ]
         known = {sig for sig in sigs if any(v is not None for v in sig)}
         if len(known) > 1:
             raise ValueError(
                 "JointModelSet members must share one sufficient-statistics "
-                f"layout; got (cov_type, dim, fused) signatures {sorted(known)}"
+                f"layout; got (cov_type, dim) signatures {sorted(known)}"
             )
         return cls(modelsets=sets)
 

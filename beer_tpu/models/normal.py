@@ -9,8 +9,7 @@ the ``shared_*`` covariance types where all K components live inside one
 Joint* prior of shape (P,) (tied covariance).
 
 Expected log-likelihood of all K components is a single
-``stats @ E[T].T`` matmul (MXU-shaped); accumulation is ``resps.T @
-stats``.  Both run under whatever jit context the caller owns.
+``stats @ E[T].T`` matmul; accumulation is ``resps.T @ stats``.  Both run under whatever jit context the caller owns.
 """
 
 from __future__ import annotations
@@ -20,13 +19,12 @@ from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from beer_tpu import dists
 from beer_tpu.dists import normallik
 from beer_tpu.models.modelset import ModelSet
 from beer_tpu.models.parameters import BayesianParameter
-from beer_tpu.ops import stats_kernels
+from beer_tpu.utils import struct
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -96,9 +94,6 @@ class NormalSet(ModelSet):
     cov_type: str = struct.field(pytree_node=False, default="full")
     ncomp: int = struct.field(pytree_node=False, default=1)
     dim: int = struct.field(pytree_node=False, default=1)
-    # Pallas-fused full-cov path: statistics stay as raw frames; the
-    # xx^T block is built tile-wise in VMEM (ops/stats_kernels.py).
-    fused: bool = struct.field(pytree_node=False, default=False)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -145,10 +140,8 @@ class NormalSet(ModelSet):
             fam, prior = _shared_prior_nat(cov_type, means, cov, prior_strength)
             _, post = _shared_prior_nat(cov_type, post_means, cov, prior_strength)
         param = BayesianParameter(prior=prior, posterior=post, family=fam)
-        fused = cov_type == "full" and stats_kernels.use_fused_full(dim, size)
         return cls(
             means_precisions=param, cov_type=cov_type, ncomp=size, dim=dim,
-            fused=fused,
         )
 
     def __len__(self) -> int:
@@ -156,8 +149,6 @@ class NormalSet(ModelSet):
 
     # ------------------------------------------------------------------
     def sufficient_statistics(self, data: jnp.ndarray) -> jnp.ndarray:
-        if self.fused:
-            return data  # raw frames; xx^T is built in-kernel (fused path)
         if self.cov_type == "diagonal":
             # Reduced layout [−½x², x] (2D): the [−½·1, ½·1] constant
             # blocks of the canonical 4D layout contribute a per-frame
@@ -176,16 +167,6 @@ class NormalSet(ModelSet):
     def expected_log_likelihood(self, stats: jnp.ndarray) -> jnp.ndarray:
         """(T, K) expected log-likelihood of every component."""
         e_stats = self.means_precisions.expected_sufficient_statistics()
-        if self.fused:
-            flat = stats.reshape(-1, self.dim)
-            # runtime backend check: fused is a static field, so a
-            # TPU-created checkpoint restored on CPU still carries it —
-            # take the exact no-materialization XLA path there
-            if stats_kernels.on_tpu():
-                llh = stats_kernels.fused_ellh_full(flat, e_stats, self.dim)
-            else:
-                llh = stats_kernels.ellh_full_xla(flat, e_stats, self.dim)
-            return llh.reshape(stats.shape[:-1] + (self.ncomp,))
         if self.cov_type == "diagonal":
             d = self.dim
             # bias_k = Σ_d (−½ E[λμ²] + ½ E[log λ]) — the constant blocks
@@ -207,52 +188,8 @@ class NormalSet(ModelSet):
             )
         return llh - 0.5 * self.dim * LOG_2PI
 
-    def ellh_matrix(self):
-        """(W (P, K), bias (K,)) with ``expected_log_likelihood(stats)
-        == stats @ W + bias`` for the diagonal reduced-stats layout —
-        the affine form the fused-ELLH scan kernels consume
-        (:func:`beer_tpu.ops.semiring_scan.forward_stats_ckpt`)."""
-        if self.cov_type != "diagonal" or self.fused:
-            raise ValueError(
-                "ellh_matrix is only defined for the diagonal "
-                "reduced-stats layout"
-            )
-        e_stats = self.means_precisions.expected_sufficient_statistics()
-        d = self.dim
-        bias = -0.5 * e_stats[:, 2 * d:3 * d].sum(-1) \
-            + 0.5 * e_stats[:, 3 * d:].sum(-1) - 0.5 * d * LOG_2PI
-        return e_stats[:, :2 * d].T, bias
-
-    def accumulate_from_moments(
-        self, acc2: jnp.ndarray, counts: jnp.ndarray
-    ) -> Dict[str, Any]:
-        """Natural-space statistics from pre-accumulated moments:
-        ``acc2 (K, 2d) = Σ_t resps_t ⊗ stats_t`` and ``counts (K,) =
-        Σ_t resps_t`` — what :meth:`accumulate` computes from the full
-        (T, K) responsibilities.  Lets kernels that accumulate γ
-        in-VMEM (:func:`beer_tpu.ops.semiring_scan.phone_loop_estep_ckpt_acc`)
-        feed the conjugate update without materializing γ."""
-        if self.cov_type != "diagonal" or self.fused:
-            raise ValueError(
-                "accumulate_from_moments is only defined for the "
-                "diagonal reduced-stats layout"
-            )
-        c = counts[..., None]
-        ones = jnp.ones((self.dim,), acc2.dtype)
-        acc = jnp.concatenate([acc2, -0.5 * c * ones, 0.5 * c * ones],
-                              axis=-1)
-        return {"means_precisions": acc}
-
     def accumulate(self, stats: jnp.ndarray, resps: jnp.ndarray) -> Dict[str, Any]:
         """resps (T, K) → natural-space statistics for the parameter."""
-        if self.fused:
-            flat = stats.reshape(-1, self.dim)
-            flat_r = resps.reshape(-1, self.ncomp)
-            if stats_kernels.on_tpu():
-                acc = stats_kernels.fused_accumulate_full(flat, flat_r)
-            else:
-                acc = stats_kernels.accumulate_full_xla(flat, flat_r)
-            return {"means_precisions": acc}
         if self.cov_type == "diagonal":
             acc2 = jnp.einsum(
                 "...tk,...tp->...kp", resps, stats,

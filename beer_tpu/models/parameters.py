@@ -17,9 +17,9 @@ which at lr=1 is the textbook closed-form VB-EM M-step.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
 
 from beer_tpu.dists.basedist import ExpFamily
+from beer_tpu.utils import struct
 
 
 @struct.dataclass

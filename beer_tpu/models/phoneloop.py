@@ -27,42 +27,18 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from beer_tpu.models.basemodel import DiscreteLatentModel
 from beer_tpu.models.categorical import SBCategorical
 from beer_tpu.models.graph import LOG_ZERO, CompiledGraph
 from beer_tpu.ops import semiring_scan
+from beer_tpu.utils import struct
 
 
 def _promote(x: jnp.ndarray) -> jnp.ndarray:
     return x[None] if x.ndim == 2 else x
-
-
-# states above which the O(S) band+rank-1 scan kernels beat the dense
-# O(S²) MXU step (see PhoneLoop.infer)
-_BANDED_MIN_STATES = 384
-
-# Lane-major (S, B) fused E-step: at small state counts the batch-major
-# (B, S) tiles pad S up to whole 128-lane groups (41% dead lanes at
-# S=150) while the serial chains are ~all VPU ops; the (S, B)
-# orientation puts B on the lanes (exact fill at B=512) and S on
-# sublanes (1.3% pad), cutting the chains' VPU work ~40%
-# (tools/exp_lane_major.py).  Single source of truth:
-# ``pallas_scan.LANE_MAJOR`` (BEER_LANE_MAJOR env), consulted at trace
-# time via this module-level proxy so tests can flip either name.
-
-
-def _lane_major(b: int, s: int) -> bool:
-    from beer_tpu.ops import pallas_scan
-
-    return LANE_MAJOR or pallas_scan.use_lane_major(b, s)
-
-
-LANE_MAJOR = False
 
 
 @struct.dataclass
@@ -159,16 +135,16 @@ class PhoneLoop(DiscreteLatentModel):
         """Band + rank-1 probability-space factorization of the
         effective transition matrix: (a_self, a_adv, exit, w) with
         ``semiring_scan.bands_to_dense(...) == exp(log_trans)`` exactly
-        (tested).  Lets the scan kernels replace the per-step (B, S) @
-        (S, S) matmul with five VPU passes."""
+        (tested).  Lets Viterbi decoding run in O(S) per step instead of
+        building a (B, S, S) candidate tensor."""
         p = self.states_per_unit
         s = self.n_states
         # Bands come from base_log_trans, NOT the scalar self_loop: the
         # subspace write-back (gsm.apply_to_phoneloop with learned
         # transitions) stores PER-STATE self/advance log-probs there,
-        # and the scalar would silently misroute every fused E-step and
-        # banded decode afterwards (round-4 bug: banded Viterbi scores
-        # 17 log-units off on a trained H-SHMM loop).
+        # and the scalar would silently misroute every banded decode
+        # afterwards (banded Viterbi scores 17 log-units off on a
+        # trained H-SHMM loop).
         if p == 1:
             # the dense builder *overwrites* every (end, start) entry —
             # with P == 1 that is the whole matrix, bands are empty
@@ -197,253 +173,15 @@ class PhoneLoop(DiscreteLatentModel):
     def sufficient_statistics(self, data: jnp.ndarray) -> jnp.ndarray:
         return self.modelset.sufficient_statistics(_promote(data))
 
-    def _fused_estep_ok(self) -> bool:
-        """The fully-fused E-step kernel path: TPU + diagonal NormalSet
-        emissions (reduced-stats layout) + dense-matmul state count."""
-        from beer_tpu.models.normal import NormalSet
-        from beer_tpu.ops import pallas_scan
-
-        ms = self.modelset
-        return (
-            pallas_scan.available()
-            and type(ms) is NormalSet
-            and ms.cov_type == "diagonal"
-            and not ms.fused
-            and self.n_states < _BANDED_MIN_STATES
-        )
-
-    def _infer_fused_lm(self, stats, mask, graph):
-        """Lane-major fused E-step forward: every per-frame array is
-        (…, S, B) so the scan kernels' VPU ops run on (S, B) tiles —
-        see the LANE_MAJOR note at module top.  The stats transpose
-        (T, P, B) happens ONCE here (~40 MB at the bench shape, vs the
-        264 MB llh stream it reorients for free: llh is *produced*
-        lane-major by the ELLH einsum below)."""
-        stats_lm = jnp.transpose(stats, (1, 2, 0))     # (T, P, B)
-        t_len, _, b = stats_lm.shape
-        s = self.n_states
-        dt = stats_lm.dtype
-        if mask is None:
-            mask = jnp.ones((b, t_len), dt)
-        t_pad = semiring_scan.scan_time_pad(t_len, b, s)
-        if t_pad != t_len:
-            stats_lm = jnp.concatenate([
-                stats_lm,
-                jnp.zeros((t_pad - t_len,) + stats_lm.shape[1:], dt),
-            ], axis=0)
-            mask = jnp.concatenate([
-                mask, jnp.zeros((b, t_pad - t_len), mask.dtype)
-            ], axis=1)
-        w_mat, bias = self.modelset.ellh_matrix()      # (P, S), (S,)
-        tiny = jnp.finfo(dt).tiny
-        bands = self._structured_trans(dt)
-        trans = jnp.exp(graph.log_trans)
-        init_lm = jnp.broadcast_to(
-            jnp.exp(jnp.maximum(graph.log_init, LOG_ZERO))[:, None], (s, b)
-        ).astype(dt)
-        final_lm = jnp.broadcast_to(
-            jnp.exp(jnp.maximum(graph.log_final, LOG_ZERO))[:, None], (s, b)
-        ).astype(dt)
-        from beer_tpu.ops import pallas_scan
-
-        fuse_ellh = pallas_scan.FUSE_ELLH and pallas_scan.FUSE_ACC
-        alphas = norms = ckpts = None
-        if fuse_ellh:
-            # stream stats only: llh = W@stats + bias computed in VMEM
-            # by both kernels (never exists in HBM); gradients through
-            # log Z use the Fisher-identity backward (one fused
-            # smoothing pass — semiring_scan.phone_loop_logz_stats_lm).
-            # Cast the affine params to the stats dtype HERE so the
-            # vjp recompute and the f32 kernel primal agree under x64
-            # test configs.
-            llh_lm = None
-            w_lm = w_mat.T.astype(dt)                  # (S, P)
-            bias = bias.astype(dt)
-            if pallas_scan.use_store_alpha(stats_lm.shape[0], s, b):
-                # store the forward α̂ trajectory so the accumulate
-                # kernel skips its serial forward recompute
-                # (pallas_scan STORE_ALPHA; outputs bit-identical)
-                log_z, alphas, norms = \
-                    semiring_scan.phone_loop_logz_stats_alpha_lm(
-                        stats_lm, bands, w_lm, bias, trans, init_lm,
-                        final_lm, mask)
-            else:
-                log_z, ckpts = semiring_scan.phone_loop_logz_stats_lm(
-                    stats_lm, bands, w_lm, bias, trans, init_lm,
-                    final_lm, mask)
-        else:
-            w_lm = None
-            llh_lm = jnp.einsum(
-                "tpb,ps->tsb", stats_lm, w_mat,
-                precision=jax.lax.Precision.HIGHEST,
-            ) + bias[None, :, None]
-            ckpts, a_last, logz_base = \
-                semiring_scan.forward_llh_ckpt_banded_lm(
-                    llh_lm, bands, trans, init_lm, mask)
-            log_z = logz_base + jnp.log(
-                jnp.maximum((a_last * final_lm).sum(0), tiny)
-            )
-            log_z = log_z * (mask.sum(-1) > 0)
-        return log_z, {
-            "llh_lm": llh_lm,
-            "w_lm": w_lm,
-            "bias_lm": bias if fuse_ellh else None,
-            "bands": bands,
-            "ckpts": ckpts,
-            "alphas": alphas,
-            "norms": norms,
-            "stats_lm": stats_lm,
-            "mask": mask,
-            "graph": graph,
-            "final_lm": final_lm,
-        }
-
-    def _accumulate_fused_lm(self, stats, cache) -> Dict[str, Any]:
-        """Lane-major mirror of :meth:`_accumulate_fused`.  By default
-        the accumulating kernel computes γᵀ@stats, the per-state counts
-        and the first-frame start term IN VMEM, so the (T, S, B) γ
-        array never exists in HBM (saves its write + re-read, ~0.3 GB
-        at the bench shape — pallas_scan._make_estep_ckpt_acc_kernel_lm).
-        ``BEER_FUSE_ACC=0`` falls back to the γ-emitting kernel + XLA
-        einsum (the two paths agree to f32 dot-order;
-        tests/test_pallas_scan.py)."""
-        sg = jax.lax.stop_gradient
-        graph = cache["graph"]
-        s = self.n_states
-        dt = cache["stats_lm"].dtype
-        sel_r_t = jax.nn.one_hot(self._ends, s, dtype=dt)      # (U, S)
-        sel_c_t = jax.nn.one_hot(self._starts, s, dtype=dt)    # (U, S)
-        trans_blk = jnp.exp(graph.log_trans)[self._ends][:, self._starts]
-        from beer_tpu.ops import pallas_scan
-
-        if pallas_scan.FUSE_ACC:
-            fuse_ellh = cache.get("w_lm") is not None
-            if cache.get("alphas") is not None:
-                # stored-α̂ route: the forward trajectory streams in,
-                # the kernel's serial loop is backward-only
-                acc2, counts, gamma0, xi_raw = \
-                    semiring_scan.phone_loop_estep_ckpt_acc_alpha_lm(
-                        sg(cache["bands"]), sg(cache["final_lm"]),
-                        sg(cache["mask"]), sel_r_t, sel_c_t,
-                        sg(cache["stats_lm"]), sg(cache["w_lm"]),
-                        sg(cache["bias_lm"]), sg(cache["alphas"]),
-                        sg(cache["norms"]),
-                    )
-            else:
-                acc2, counts, gamma0, xi_raw = \
-                    semiring_scan.phone_loop_estep_ckpt_acc_lm(
-                        None if fuse_ellh else sg(cache["llh_lm"]),
-                        sg(cache["bands"]),
-                        sg(cache["ckpts"]), sg(cache["final_lm"]),
-                        sg(cache["mask"]), sel_r_t, sel_c_t,
-                        sg(cache["stats_lm"]),
-                        w=sg(cache["w_lm"]) if fuse_ellh else None,
-                        bias=sg(cache["bias_lm"]) if fuse_ellh else None,
-                    )
-            start_term = gamma0[self._starts, :].sum(-1)
-        else:
-            gamma_lm, xi_raw = semiring_scan.phone_loop_estep_ckpt_lm(
-                sg(cache["llh_lm"]), sg(cache["bands"]),
-                sg(cache["ckpts"]), sg(cache["final_lm"]),
-                sg(cache["mask"]), sel_r_t, sel_c_t,
-            )
-            stats_lm = cache["stats_lm"]
-            acc2 = jnp.einsum(
-                "tsb,tpb->sp", gamma_lm, stats_lm,
-                precision=jax.lax.Precision.HIGHEST,
-            )
-            counts = gamma_lm.sum((0, 2))
-            start_term = gamma_lm[0][self._starts, :].sum(-1)
-        unit_counts = (xi_raw * sg(trans_blk)).sum(0) + start_term
-        return {
-            "modelset": self.modelset.accumulate_from_moments(
-                acc2.astype(dt), counts.astype(dt)),
-            "unit_prior": self.unit_prior.accumulate_counts(unit_counts),
-        }
-
     def infer(self, stats: jnp.ndarray, mask: Optional[jnp.ndarray] = None):
-        if self._fused_estep_ok():
-            graph = self._effective_graph()
-            if _lane_major(stats.shape[0], self.n_states):
-                return self._infer_fused_lm(stats, mask, graph)
-            # transpose the (smaller) stats once and compute llh with one
-            # XLA matmul; streaming llh into the kernels beats computing
-            # it in-kernel from (stats, W, bias) — the in-VMEM HIGHEST
-            # matmul costs more than the stream bytes it saves
-            # (tools/exp_latency_vs_stream.py; forward_stats_ckpt keeps
-            # the fused-ELLH variant for larger S/P ratios)
-            stats_tm = jnp.swapaxes(stats, 0, 1)
-            t_len, b = stats_tm.shape[:2]
-            s = self.n_states
-            dt = stats_tm.dtype
-            if mask is None:
-                mask = jnp.ones((b, t_len), dt)
-            # pad time ONCE, on the (cheaper) stats array, so neither
-            # scan pass re-pads the llh stream (each per-pass _pad_tm is
-            # a full-array HBM copy, ~0.75 ms at the bench shape); the
-            # pad fuses into the ELLH matmul below
-            t_pad = semiring_scan.scan_time_pad(t_len, b, s)
-            if t_pad != t_len:
-                stats_tm = jnp.concatenate([
-                    stats_tm,
-                    jnp.zeros((t_pad - t_len,) + stats_tm.shape[1:], dt),
-                ], axis=0)
-                mask = jnp.concatenate([
-                    mask, jnp.zeros((b, t_pad - t_len), mask.dtype)
-                ], axis=1)
-            llh_tm = self.modelset.expected_log_likelihood(stats_tm)
-            tiny = jnp.finfo(llh_tm.dtype).tiny
-            # the phone-loop transition is band + rank-1: the banded
-            # kernels replace the per-step dense (S, S) MXU matmul with
-            # five VPU passes, 2.3× faster per chain step (the chain is
-            # the kernels' cost — docs/PERFORMANCE.md); the dense matrix
-            # feeds only the custom_vjp recompute
-            bands = self._structured_trans(llh_tm.dtype)
-            trans = jnp.exp(graph.log_trans)
-            init_vec = jnp.broadcast_to(
-                jnp.exp(jnp.maximum(graph.log_init, LOG_ZERO)), (b, s)
-            ).astype(llh_tm.dtype)
-            final_vec = jnp.broadcast_to(
-                jnp.exp(jnp.maximum(graph.log_final, LOG_ZERO)), (b, s)
-            ).astype(llh_tm.dtype)
-            ckpts, a_last, logz_base = semiring_scan.forward_llh_ckpt_banded(
-                llh_tm, bands, trans, init_vec, mask
-            )
-            log_z = logz_base + jnp.log(
-                jnp.maximum((a_last * final_vec).sum(-1), tiny)
-            )
-            log_z = log_z * (mask.sum(-1) > 0)
-            # "ckpts" in cache discriminates the fused path (static
-            # under jit; a True leaf would be traced)
-            return log_z, {
-                "llh_tm": llh_tm,
-                "bands": bands,
-                "ckpts": ckpts,
-                "stats_tm": stats_tm,
-                "mask": mask,
-                "graph": graph,
-                "final_vec": final_vec,
-            }
-        return self.smooth(stats, mask)
-
-    def smooth(self, stats: jnp.ndarray, mask: Optional[jnp.ndarray] = None):
-        """General E-step with materialized posteriors in the cache —
-        the fallback of :meth:`infer` and the entry point for consumers
-        that need per-frame posteriors (GSM stats bridging)."""
+        """E-step with materialized posteriors in the cache (also the
+        entry point for consumers that need per-frame posteriors, e.g.
+        the GSM stats bridge)."""
         graph = self._effective_graph()
         llh_states = self.modelset.expected_log_likelihood(stats)
-        # Band + rank-1 kernels are O(S) per step vs the MXU matmul's
-        # O(S²), but cross-lane VPU ops (roll, lane reduce, broadcast)
-        # cost more per pass: measured on v5e, dense wins at S = 150
-        # (17.3M vs 13.2M frames/s) — the banded path pays off only for
-        # large state spaces.
-        bands = (
-            self._structured_trans(llh_states.dtype)
-            if self.n_states >= _BANDED_MIN_STATES else None
-        )
         fb = semiring_scan.forward_backward_probs(
             llh_states, graph.log_trans, graph.log_init, graph.log_final,
-            mask, structured_trans=bands,
+            mask,
         )
         log_z = fb.log_z
         if mask is not None:
@@ -470,51 +208,12 @@ class PhoneLoop(DiscreteLatentModel):
         return loop_counts + init_counts
 
     def accumulate(self, stats: jnp.ndarray, cache: Dict[str, Any]) -> Dict[str, Any]:
-        if "llh_lm" in cache:
-            return self._accumulate_fused_lm(stats, cache)
-        if "ckpts" in cache:
-            return self._accumulate_fused(stats, cache)
         post = cache["posteriors"]  # (B, T, S); pdf_ids are the identity here
         flat_resps = post.reshape(-1, self.n_states)
         flat_stats = stats.reshape((-1,) + stats.shape[2:])
         return {
             "modelset": self.modelset.accumulate(flat_stats, flat_resps),
             "unit_prior": self.unit_prior.accumulate_counts(self._unit_counts(cache)),
-        }
-
-    def _accumulate_fused(self, stats, cache) -> Dict[str, Any]:
-        """Fused kernel: backward recursion + γ + in-kernel restricted ξ
-        (the β̂/w factors never reach HBM); the emission accumulation
-        runs as one MXU-shaped XLA matmul over the time-major γ and the
-        cached time-major stats.  Measured AGAINST fusing that matmul
-        into the kernel (semiring_scan.phone_loop_estep_ckpt_acc): XLA
-        streams γ+stats at ~700 GB/s while an in-kernel stats stream
-        pays the ~250 GB/s pallas pipeline rate and the in-VMEM HIGHEST
-        matmul doesn't hide behind it — the fusion LOSES ~1.3 ms/epoch
-        at the bench shape despite eliminating the (T, B, S) γ HBM
-        round-trip (tools/exp_acc_variants.py).  Conjugate statistics
-        carry no gradients (matching the reference's hook-harvested
-        stats), hence the stop_gradient."""
-        sg = jax.lax.stop_gradient
-        graph = cache["graph"]
-        s = self.n_states
-        dt = cache["llh_tm"].dtype
-        sel_r = jax.nn.one_hot(self._ends, s, dtype=dt).T      # (S, U)
-        sel_c = jax.nn.one_hot(self._starts, s, dtype=dt).T    # (S, U)
-        gamma_tm, xi_raw = semiring_scan.phone_loop_estep_ckpt_banded(
-            sg(cache["llh_tm"]), sg(cache["bands"]), sg(cache["ckpts"]),
-            sg(cache["final_vec"]),
-            sg(cache["mask"]), sel_r, sel_c,
-        )
-        stats_tm = cache["stats_tm"]
-        flat_resps = gamma_tm.reshape(-1, s)
-        flat_stats = stats_tm.reshape((-1,) + stats_tm.shape[2:])
-        trans_blk = jnp.exp(graph.log_trans)[self._ends][:, self._starts]
-        unit_counts = (xi_raw * sg(trans_blk)).sum(0) \
-            + gamma_tm[0][:, self._starts].sum(0)
-        return {
-            "modelset": self.modelset.accumulate(flat_stats, flat_resps),
-            "unit_prior": self.unit_prior.accumulate_counts(unit_counts),
         }
 
     def kl_div_posterior_prior(self) -> jnp.ndarray:

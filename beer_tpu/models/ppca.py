@@ -20,21 +20,21 @@ from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from beer_tpu import dists
 from beer_tpu.models.basemodel import Model
 from beer_tpu.models.parameters import BayesianParameter
+from beer_tpu.utils import struct
 
 LOG_2PI = math.log(2.0 * math.pi)
 
 def _f32_matmuls(fn):
     """Force f32 (HIGHEST) matmul precision inside VB math.
 
-    On TPU the default single-pass bf16 matmuls perturb the closed-form
-    coordinate updates enough to break ELBO monotonicity (observed
-    ~0.5%/step on-chip); these paths are tiny, so full precision is
-    free.
+    Default-precision matmuls (single-pass bf16 or TF32, by backend)
+    perturb the closed-form coordinate updates enough to break ELBO
+    monotonicity (observed ~0.5%/step); these paths are tiny, so full
+    precision is free.
     """
     import functools
 

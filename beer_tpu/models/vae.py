@@ -29,43 +29,24 @@ from typing import Any, Dict, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as fnn
-from flax import struct
-
 from beer_tpu import nnet
 from beer_tpu.models.basemodel import Model
 from beer_tpu.nnet import flows as nnet_flows
+from beer_tpu.utils import struct
 
 
-class _Encoder(fnn.Module):
-    """MLP trunk + diagonal-Normal head (module-level: picklable)."""
-
-    hidden: tuple
-    latent_dim: int
-    residual: bool = False
-
-    @fnn.compact
-    def __call__(self, x):
-        trunk = nnet.ResMLP if self.residual else nnet.MLP
-        h = trunk(self.hidden)(x)
-        return nnet.NormalDiagLayer(self.latent_dim)(h)
+def _encoder(hidden: tuple, latent_dim: int, residual: bool = False):
+    """MLP trunk + diagonal-Normal head."""
+    trunk = nnet.ResMLP if residual else nnet.MLP
+    return nnet.Sequential((trunk(hidden), nnet.NormalDiagLayer(latent_dim)))
 
 
-class _Decoder(fnn.Module):
-    hidden: tuple
-    obs_dim: int
-    output: str = "normal"
-    residual: bool = False
-
-    @fnn.compact
-    def __call__(self, z):
-        trunk = nnet.ResMLP if self.residual else nnet.MLP
-        h = trunk(self.hidden)(z)
-        if self.output == "normal":
-            return nnet.NormalDiagLayer(self.obs_dim)(h)
-        if self.output == "normal_iso":
-            return nnet.NormalIsoLayer(self.obs_dim)(h)
-        return nnet.BernoulliLayer(self.obs_dim)(h)
+def _decoder(hidden: tuple, obs_dim: int, output: str = "normal",
+             residual: bool = False):
+    trunk = nnet.ResMLP if residual else nnet.MLP
+    head = {"normal": nnet.NormalDiagLayer,
+            "normal_iso": nnet.NormalIsoLayer}.get(output, nnet.BernoulliLayer)
+    return nnet.Sequential((trunk(hidden), head(obs_dim)))
 
 
 @struct.dataclass
@@ -97,8 +78,8 @@ class VAE(Model):
         Normal-iso / Bernoulli output heads, optional flow posterior."""
         key = key if key is not None else jax.random.PRNGKey(0)
         k_enc, k_dec, k_flow = jax.random.split(key, 3)
-        enc = _Encoder(tuple(hidden), latent_dim, residual)
-        dec = _Decoder(tuple(hidden), obs_dim, output, residual)
+        enc = _encoder(tuple(hidden), latent_dim, residual)
+        dec = _decoder(tuple(hidden), obs_dim, output, residual)
         params = {
             "encoder": enc.init(k_enc, jnp.zeros((1, obs_dim))),
             "decoder": dec.init(k_dec, jnp.zeros((1, latent_dim))),

@@ -16,22 +16,36 @@ drop-in for the VAE's posterior sampling path.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 from beer_tpu import nnet
 
 
-class PlanarFlow(nn.Module):
+def _float():
+    """JAX's default float: float64 when x64 is enabled, else float32."""
+    return jax.dtypes.canonicalize_dtype(jnp.float64)
+
+
+def _normal(key, path, shape, std):
+    return std * jax.random.normal(nnet.param_key(key, path), shape,
+                                   _float())
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanarFlow(nnet.Module):
     dim: int
 
-    @nn.compact
-    def __call__(self, z):
+    def init(self, key, z, path=()):
+        return {"u": _normal(key, path + (1,), (self.dim,), 0.1),
+                "w": _normal(key, path + (2,), (self.dim,), 0.1),
+                "b": jnp.zeros((), _float())}
+
+    def apply(self, params, z):
         """Returns (z', log|det ∂z'/∂z|), batched over leading dims."""
-        u = self.param("u", nn.initializers.normal(0.1), (self.dim,))
-        w = self.param("w", nn.initializers.normal(0.1), (self.dim,))
-        b = self.param("b", nn.initializers.zeros, ())
+        u, w, b = params["u"], params["w"], params["b"]
         # û reparameterization: wᵀû ≥ −1 keeps the flow invertible
         wu = (w * u).sum()
         m = -1.0 + jnp.logaddexp(wu, 0.0)  # m(wu) = -1 + softplus(wu)
@@ -43,14 +57,24 @@ class PlanarFlow(nn.Module):
         return z_new, logdet
 
 
-class AffineAutoregressiveFlow(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class AffineAutoregressiveFlow(nnet.Module):
     """One masked-affine IAF step with a small MADE conditioner."""
 
     dim: int
     hidden: int = 32
 
-    @nn.compact
-    def __call__(self, z):
+    def init(self, key, z, path=()):
+        d, h, dt = self.dim, self.hidden, _float()
+        return {
+            "w1": _normal(key, path + (1,), (d, h), 0.1),
+            "b1": jnp.zeros((h,), dt),
+            "w_m": _normal(key, path + (3,), (h, d), 0.01),
+            "w_s": _normal(key, path + (4,), (h, d), 0.01),
+            "b_m": jnp.zeros((d,), dt), "b_s": jnp.zeros((d,), dt),
+        }
+
+    def apply(self, params, z):
         d = self.dim
         # MADE degrees: inputs 1..d, hidden cycled, outputs 1..d — masks
         # make every output depend only on z_{<d} (autoregressive).
@@ -60,35 +84,36 @@ class AffineAutoregressiveFlow(nn.Module):
         m1 = (hid_deg[None, :] >= in_deg[:, None]).astype(jnp.float32)
         m2 = (out_deg[None, :] > hid_deg[:, None]).astype(jnp.float32)
 
-        w1 = self.param("w1", nn.initializers.normal(0.1), (d, self.hidden))
-        b1 = self.param("b1", nn.initializers.zeros, (self.hidden,))
-        w_m = self.param("w_m", nn.initializers.normal(0.01), (self.hidden, d))
-        w_s = self.param("w_s", nn.initializers.normal(0.01), (self.hidden, d))
-        b_m = self.param("b_m", nn.initializers.zeros, (d,))
-        b_s = self.param("b_s", nn.initializers.zeros, (d,))
-
-        h = jnp.tanh(z @ (w1 * m1) + b1)
-        shift = h @ (w_m * m2) + b_m
-        log_scale = jnp.clip(h @ (w_s * m2) + b_s, -5.0, 5.0)
+        p = params
+        h = jnp.tanh(z @ (p["w1"] * m1) + p["b1"])
+        shift = h @ (p["w_m"] * m2) + p["b_m"]
+        log_scale = jnp.clip(h @ (p["w_s"] * m2) + p["b_s"], -5.0, 5.0)
         z_new = z * jnp.exp(log_scale) + shift
         return z_new, log_scale.sum(-1)
 
 
-class FlowStack(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class FlowStack(nnet.Module):
     """Compose flows; returns (z_K, Σ log-dets)."""
 
     dim: int
     n_planar: int = 2
     n_iaf: int = 0
 
-    @nn.compact
-    def __call__(self, z):
+    @property
+    def flows(self):
+        return ((PlanarFlow(self.dim),) * self.n_planar
+                + (AffineAutoregressiveFlow(self.dim),) * self.n_iaf)
+
+    def init(self, key, z, path=()):
+        flows = self.flows
+        return [f.init(key, z, path + (name,))
+                for f, name in zip(flows, nnet.child_names(flows))]
+
+    def apply(self, params, z):
         total = jnp.zeros(z.shape[:-1], z.dtype)
-        for _ in range(self.n_planar):
-            z, ld = PlanarFlow(self.dim)(z)
-            total = total + ld
-        for _ in range(self.n_iaf):
-            z, ld = AffineAutoregressiveFlow(self.dim)(z)
+        for flow, p in zip(self.flows, params):
+            z, ld = flow.apply(p, z)
             total = total + ld
         return z, total
 

@@ -6,12 +6,12 @@ where the reference runs a Python ``for t in range(T)`` loop of
 SURVEY.md §3.2), these are whole-batch XLA programs:
 
 * :func:`forward_backward` — the **scaled** recursions: carries are
-  normalized probabilities plus a per-sequence log-scale, the per-step
-  (B, S) @ (S, S) product rides the MXU, exp(llh) is hoisted out of the
-  scan, and the only in-step transcendental is one log on the (B, 1)
-  normalizer.  On TPU the whole T-loop runs as a single Pallas kernel
-  (:mod:`beer_tpu.ops.pallas_scan`); per-utterance-graph batches use the
-  ``lax.scan`` path.  Posteriors are per-frame softmaxes of α+β and
+  normalized probabilities plus a per-sequence log-scale, one (B, S) @
+  (S, S) product per step, exp(llh) is hoisted out of the scan, and the
+  only in-step transcendental is one log on the (B, 1) normalizer.
+  :func:`forward_backward_probs` (the training path) runs the whole
+  T-loop as one Pallas kernel on a GPU (:mod:`beer_tpu.ops.triton_scan`);
+  per-utterance-graph batches use the ``lax.scan`` path.  Posteriors are per-frame softmaxes of α+β and
   ξ-counts use per-frame-normalized factors — both independent of any
   probability floor the scaled carries introduce.
 * :func:`forward_assoc` — ``lax.associative_scan`` over log-transition
@@ -38,6 +38,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+
+from beer_tpu.ops import triton_scan
 
 _NEG_INF = -1e30  # avoids (-inf) - (-inf) = nan in masked/unreachable states
 
@@ -229,12 +231,12 @@ def _scaled_pass(e_llh, trans, init_vec, mask, reverse: bool):
 
 
 def _smoothing_scan(e_llh, trans, final_vec, mask, a_probs):
-    """jnp fallback of ``pallas_scan.backward_smoothing_pass``.
+    """Fused backward + smoothing pass as a ``lax.scan``.
 
     v-space backward recursion (carry v̂_t ∝ e_t·β_t, normalized) with
-    the smoothing outputs computed in-step; bit-identical semantics to
-    the Pallas kernel (tests assert agreement).  Handles per-utterance
-    (B, S, S) transition matrices via einsum.
+    the smoothing outputs computed in-step; the semantics of
+    ``triton_scan.smoothing_pass`` (tests assert agreement).  Handles
+    per-utterance (B, S, S) transition matrices via einsum.
     """
     b, t_len, s = e_llh.shape
     tiny = jnp.finfo(e_llh.dtype).tiny
@@ -282,648 +284,6 @@ def _smoothing_scan(e_llh, trans, final_vec, mask, a_probs):
     )
 
 
-def _make_smoothing_diffable(time_major: bool):
-    """Pallas smoothing pass wrapped in ``custom_vjp`` (jnp-scan VJP)."""
-
-    def reference(e_llh, trans, final_vec, mask, a_probs):
-        if not time_major:
-            return _smoothing_scan(e_llh, trans, final_vec, mask, a_probs)
-        g, w, ws, pn = _smoothing_scan(
-            jnp.swapaxes(e_llh, 0, 1), trans, final_vec, mask,
-            jnp.swapaxes(a_probs, 0, 1),
-        )
-        return (jnp.swapaxes(g, 0, 1), jnp.swapaxes(w, 0, 1), ws.T, pn.T)
-
-    @jax.custom_vjp
-    def run(e_llh, trans, final_vec, mask, a_probs):
-        from beer_tpu.ops import pallas_scan
-
-        return pallas_scan.backward_smoothing_pass(
-            e_llh, trans, final_vec, mask, a_probs, time_major=time_major
-        )
-
-    def fwd(*args):
-        return run(*args), args
-
-    def bwd(res, ct):
-        _, vjp = jax.vjp(reference, *res)
-        return vjp(ct)
-
-    run.defvjp(fwd, bwd)
-    return run
-
-
-_smoothing_pallas = _make_smoothing_diffable(False)
-_smoothing_pallas_tm = _make_smoothing_diffable(True)
-
-
-@jax.custom_vjp
-def forward_llh(llh_tm, trans, init_vec, mask):
-    """Pallas scaled forward from raw time-major llh (no HBM e_llh);
-    returns (α̂ (T, B, S), per-step norms (T, B), masked rowmax shifts
-    (T, B)).  custom_vjp recomputes through the jnp scan (SVAE
-    ∂log Z/∂llh)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.forward_llh_pass(llh_tm, trans, init_vec, mask)
-
-
-def _fwd_llh_reference(llh_tm, trans, init_vec, mask):
-    llh = jnp.swapaxes(llh_tm, 0, 1)
-    m_llh = jnp.max(llh, axis=-1, keepdims=True)
-    e = jnp.exp(llh - m_llh) * mask[..., None] + (1 - mask[..., None])
-    p, l, _ = _scaled_pass(e, trans, init_vec, mask, reverse=False)
-    # cumulative log-scales → per-step norms (1 on masked frames)
-    dlc = jnp.diff(l, axis=1, prepend=jnp.zeros_like(l[:, :1]))
-    norms = jnp.exp(dlc)
-    return (jnp.swapaxes(p, 0, 1), norms.T, (m_llh[..., 0] * mask).T)
-
-
-def _fwd_llh_fwd(*args):
-    return forward_llh(*args), args
-
-
-def _fwd_llh_bwd(res, ct):
-    _, vjp = jax.vjp(_fwd_llh_reference, *res)
-    return vjp(ct)
-
-
-forward_llh.defvjp(_fwd_llh_fwd, _fwd_llh_bwd)
-
-
-def scan_time_pad(t_len: int, b: int, s: int) -> int:
-    """The padded time length the fused scan kernels use at this block
-    shape.  Callers that pre-pad their (T, B, ·) streams (and mask) to
-    this length make the per-pass ``_pad_tm`` a no-op — otherwise EACH
-    kernel pass pays a full-array pad copy (~0.75 ms per pass at the
-    bench shape; the pad is cheapest fused into the ELLH matmul's stats
-    input, see PhoneLoop.infer)."""
-    from beer_tpu.ops import pallas_scan
-
-    k = pallas_scan._steps_per_block(b, s)
-    return -(-t_len // k) * k
-
-
-@jax.custom_vjp
-def forward_llh_ckpt(llh_tm, trans, init_vec, mask):
-    """Pallas scaled forward emitting block-entry CHECKPOINTS instead of
-    the full α̂ stream (the stream is the kernel's dominant HBM cost —
-    docs/PERFORMANCE.md).  Returns (ckpts (n_blocks, B, S), last (B, S),
-    logz_base (B,) = Σ_t log c_t + Σ_t mllh_t); ``log Z = logz_base +
-    log Σ last·final``.  custom_vjp recomputes through the jnp scan
-    (SVAE ∂log Z/∂llh)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.forward_llh_ckpt_pass(llh_tm, trans, init_vec, mask)
-
-
-def _fwd_llh_ckpt_reference(llh_tm, trans, init_vec, mask):
-    from beer_tpu.ops import pallas_scan
-
-    p, norms, mllh = _fwd_llh_reference(llh_tm, trans, init_vec, mask)
-    t_len, b, s = llh_tm.shape
-    k = pallas_scan._steps_per_block(b, s)
-    n_blocks = -(-t_len // k)
-    entries = [jnp.broadcast_to(init_vec, (b, s)).astype(llh_tm.dtype)]
-    for g in range(1, n_blocks):
-        entries.append(p[g * k - 1])
-    logz_base = (jnp.log(norms) * mask.T).sum(0) + mllh.sum(0)
-    return jnp.stack(entries), p[-1], logz_base
-
-
-def _fwd_llh_ckpt_fwd(*args):
-    return forward_llh_ckpt(*args), args
-
-
-def _fwd_llh_ckpt_bwd(res, ct):
-    _, vjp = jax.vjp(_fwd_llh_ckpt_reference, *res)
-    return vjp(ct)
-
-
-forward_llh_ckpt.defvjp(_fwd_llh_ckpt_fwd, _fwd_llh_ckpt_bwd)
-
-
-@jax.custom_vjp
-def forward_llh_ckpt_banded(llh_tm, bands, trans, init_vec, mask):
-    """:func:`forward_llh_ckpt` with the phone-loop band + rank-1
-    transition structure (``bands = (a_self, a_adv, exit, w)``, each
-    (S,)) — the per-step product runs on the VPU, measured 2.3× faster
-    than the dense (S, S) MXU step (docs/PERFORMANCE.md).  ``trans``
-    (the equivalent dense matrix) feeds only the custom_vjp recompute;
-    the vjp is ∂/∂llh (SVAE) — the transition-structure cotangent is
-    zero by construction (conjugate transition updates are closed-form,
-    never autograd)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.forward_llh_ckpt_pass(
-        llh_tm, None, init_vec, mask, bands=bands,
-    )
-
-
-def _fwd_llh_ckpt_banded_fwd(*args):
-    return forward_llh_ckpt_banded(*args), args
-
-
-def _fwd_llh_ckpt_banded_bwd(res, ct):
-    llh_tm, bands, trans, init_vec, mask = res
-    _, vjp = jax.vjp(_fwd_llh_ckpt_reference, llh_tm, trans, init_vec, mask)
-    d_llh, d_trans, d_init, d_mask = vjp(ct)
-    return (d_llh, jax.tree.map(jnp.zeros_like, bands), d_trans,
-            d_init, d_mask)
-
-
-forward_llh_ckpt_banded.defvjp(_fwd_llh_ckpt_banded_fwd,
-                               _fwd_llh_ckpt_banded_bwd)
-
-
-def hmm_estep_ckpt(llh_tm, ckpts, trans, final_vec, mask):
-    """Checkpointed fused E-step for a GENERAL shared-graph HMM: like
-    :func:`phone_loop_estep_ckpt` but with FULL (S, S) ξ — identity
-    selections make the selection matmuls vanish, so the kernel directly
-    accumulates Σ_t weight_t · α̂_t ⊗ ŵ_{t+1}.  Returns
-    (γ (T, B, S), xi_raw (S, S)); transition counts =
-    ``xi_raw * exp(log_trans)`` (the same outer-times-arc form as
-    :func:`expected_transition_counts_probs`).  Not differentiable
-    (stop-gradient inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_pass(
-        llh_tm, ckpts, trans, final_vec, mask, None, None,
-    )
-
-
-def phone_loop_estep_ckpt_banded(llh_tm, bands, ckpts, final_vec, mask,
-                                 sel_r, sel_c):
-    """Banded variant of :func:`phone_loop_estep_ckpt` — both in-kernel
-    chains (α̂ recompute + v-space backward) use the band + rank-1
-    propagators, matching :func:`forward_llh_ckpt_banded` so the α̂
-    regeneration stays bit-identical.  Not differentiable (stop-gradient
-    inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_pass(
-        llh_tm, ckpts, None, final_vec, mask, sel_r, sel_c,
-        bands=bands,
-    )
-
-
-@jax.custom_vjp
-def forward_llh_ckpt_banded_lm(llh_lm, bands, trans, init_vec, mask):
-    """Lane-major (S, B) variant of :func:`forward_llh_ckpt_banded`:
-    at small state counts S pads to whole 128-lane groups in the
-    batch-major tiles (41% dead lanes at the bench S=150) while B fills
-    lanes exactly — the (S, B) orientation cuts the serial chains' VPU
-    work ~40% (tools/exp_lane_major.py).  ``llh_lm`` (T, S, B),
-    ``init_vec`` (S, B); returns (ckpts (n_blocks, S, B), last (S, B),
-    logz_base (B,)).  ``trans`` feeds only the custom_vjp recompute
-    (∂/∂llh, SVAE)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.forward_llh_ckpt_pass_lm(
-        llh_lm, bands, init_vec, mask,
-    )
-
-
-def _fwd_llh_ckpt_banded_lm_fwd(*args):
-    return forward_llh_ckpt_banded_lm(*args), args
-
-
-def _fwd_llh_ckpt_banded_lm_bwd(res, ct):
-    llh_lm, bands, trans, init_vec, mask = res
-    ct_ckpts, ct_last, ct_logz = ct
-    _, vjp = jax.vjp(
-        _fwd_llh_ckpt_reference, jnp.swapaxes(llh_lm, 1, 2), trans,
-        init_vec.T, mask,
-    )
-    d_llh, d_trans, d_init, d_mask = vjp(
-        (jnp.swapaxes(ct_ckpts, 1, 2), ct_last.T, ct_logz))
-    return (jnp.swapaxes(d_llh, 1, 2), jax.tree.map(jnp.zeros_like, bands),
-            d_trans, d_init.T, d_mask)
-
-
-forward_llh_ckpt_banded_lm.defvjp(_fwd_llh_ckpt_banded_lm_fwd,
-                                  _fwd_llh_ckpt_banded_lm_bwd)
-
-
-def phone_loop_estep_ckpt_lm(llh_lm, bands, ckpts, final_vec, mask,
-                             sel_r_t, sel_c_t):
-    """Lane-major fused smoothing + restricted ξ
-    (:func:`pallas_scan.phone_loop_estep_ckpt_pass_lm`); pairs with
-    :func:`forward_llh_ckpt_banded_lm`.  Returns (γ (T, S, B),
-    xi_raw (n_r, n_c)).  Not differentiable (stop-gradient inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_pass_lm(
-        llh_lm, ckpts, bands, final_vec, mask, sel_r_t, sel_c_t,
-    )
-
-
-def phone_loop_estep_ckpt_acc_lm(llh_lm, bands, ckpts, final_vec, mask,
-                                 sel_r_t, sel_c_t, stats_lm,
-                                 w=None, bias=None):
-    """Accumulating lane-major fused E-step
-    (:func:`pallas_scan.phone_loop_estep_ckpt_acc_lm`): smoothing +
-    restricted ξ + in-VMEM γᵀ@stats — the (T, S, B) γ array never
-    touches HBM.  With ``w (S, P)`` / ``bias (S,)``, llh is computed in
-    VMEM from the same stats stream and ``llh_lm`` is ignored (pass
-    None).  Returns (acc2 (S, P), counts (S,), γ0 (S, B),
-    xi_raw (n_r, n_c)).  Not differentiable (stop-gradient inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_acc_lm(
-        llh_lm, ckpts, bands, final_vec, mask, sel_r_t, sel_c_t,
-        stats_lm, w=w, bias=bias,
-    )
-
-
-def phone_loop_estep_ckpt_acc_alpha_lm(bands, final_vec, mask, sel_r_t,
-                                       sel_c_t, stats_lm, w, bias,
-                                       alphas, norms):
-    """Stored-α̂ accumulating fused E-step: the forward trajectory from
-    :func:`phone_loop_logz_stats_alpha_lm` streams into the smoothing
-    kernel instead of being recomputed from block checkpoints — the
-    serial loop carries only the backward chain (pallas_scan
-    STORE_ALPHA).  Outputs bit-identical to
-    :func:`phone_loop_estep_ckpt_acc_lm`.  Not differentiable
-    (stop-gradient inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_acc_lm(
-        None, None, bands, final_vec, mask, sel_r_t, sel_c_t,
-        stats_lm, w=w, bias=bias, alphas=alphas, norms=norms,
-    )
-
-
-def _logz_from_kernels(stats_lm, bands, w, bias, trans, init_lm,
-                       final_lm, mask, store_alpha: bool = False):
-    """Shared forward: (log_z, *seed) where seed is (ckpts,) or
-    (alphas, norms) under ``store_alpha`` — one epilogue for both
-    routes so the tiny-clamp / zero-length handling cannot diverge."""
-    from beer_tpu.ops import pallas_scan
-
-    out = pallas_scan.forward_llh_ckpt_pass_lm(
-        stats_lm, bands, init_lm, mask,
-        trans=None if bands is not None else trans, w=w, bias=bias,
-        store_alpha=store_alpha,
-    )
-    *seed, a_last, logz_base = out
-    tiny = jnp.finfo(logz_base.dtype).tiny
-    log_z = logz_base + jnp.log(
-        jnp.maximum((a_last * final_lm).sum(0), tiny))
-    return (log_z * (mask.sum(-1) > 0), *seed)
-
-
-def _logz_stats_lm_bwd_impl(res, ct):
-    """Fisher-identity backward: ∂log Z_b/∂llh[t,s,b] = γ[t,s,b], so
-    one fused smoothing pass replaces the serial reference-scan vjp
-    (measured 1.9 ms vs ~0.1 ms at the SVAE latent shape).  With
-    llh = W@stats + bias the chain rule gives ∂/∂stats = Wᵀ(γ·ct),
-    ∂/∂W = (γ·ct)ᵀ⊗stats, ∂/∂bias = Σ(γ·ct).  Transition/boundary
-    parameters (bands/trans/init/final) get ZERO cotangents by design:
-    this framework trains them conjugately, never by gradient
-    (reference beer semantics)."""
-    from beer_tpu.ops import pallas_scan
-
-    stats_lm, bands, w, bias, trans, init_lm, final_lm, mask, ckpts = res
-    ct_logz, _ct_ckpts = ct            # ckpts output: non-differentiable
-    s = w.shape[0]
-    sel1 = jnp.zeros((1, s), stats_lm.dtype).at[0, 0].set(1.0)
-    gamma, _ = pallas_scan.phone_loop_estep_ckpt_pass_lm(
-        stats_lm, ckpts, bands, final_lm, mask, sel1, sel1,
-        trans=None if bands is not None else trans, w=w, bias=bias,
-    )
-    hi = jax.lax.Precision.HIGHEST
-    g = gamma * ct_logz[None, None, :]
-    d_stats = jnp.einsum("sp,tsb->tpb", w, g, precision=hi)
-    d_w = jnp.einsum("tsb,tpb->sp", g, stats_lm, precision=hi)
-    d_bias = g.sum((0, 2))
-    zeros = lambda x: jax.tree.map(jnp.zeros_like, x)
-    return (d_stats, zeros(bands), d_w, d_bias, zeros(trans),
-            zeros(init_lm), zeros(final_lm), zeros(mask))
-
-
-@jax.custom_vjp
-def phone_loop_logz_stats_lm(stats_lm, bands, w, bias, trans, init_lm,
-                             final_lm, mask):
-    """Differentiable log Z through the stats-streaming lane-major
-    kernels (banded phone-loop transitions): llh = W@stats + bias is
-    computed in VMEM, and the BACKWARD uses the HMM Fisher identity
-    ∂log Z/∂llh = γ via one fused smoothing pass — no serial
-    reference-scan vjp.  Returns (log_z (B,), ckpts (n, S, B)); the
-    ckpts output exists to seed the stop-gradient accumulate pass and
-    is non-differentiable (its cotangent is dropped).  Gradients flow
-    to stats/w/bias only; transition and boundary parameters are
-    conjugate-trained in this framework and get zero cotangents."""
-    return _logz_from_kernels(stats_lm, bands, w, bias, trans, init_lm,
-                              final_lm, mask)
-
-
-def _pl_logz_stats_lm_fwd(*args):
-    out = phone_loop_logz_stats_lm(*args)
-    return out, args + (out[1],)
-
-
-phone_loop_logz_stats_lm.defvjp(_pl_logz_stats_lm_fwd,
-                                _logz_stats_lm_bwd_impl)
-
-
-@jax.custom_vjp
-def phone_loop_logz_stats_alpha_lm(stats_lm, bands, w, bias, trans,
-                                   init_lm, final_lm, mask):
-    """Stored-α̂ variant of :func:`phone_loop_logz_stats_lm`: the
-    forward kernel emits the full α̂ trajectory + per-step normalizers
-    (returns ``(log_z, alphas, norms)``) so the accumulate pass can
-    skip its serial forward recompute
-    (:func:`phone_loop_estep_ckpt_acc_alpha_lm`).  The alphas/norms
-    outputs are non-differentiable seeds; the Fisher-identity backward
-    is identical to the ckpt route's (block checkpoints are a cheap
-    slice of the stored trajectory)."""
-    return _logz_from_kernels(stats_lm, bands, w, bias, trans,
-                              init_lm, final_lm, mask, store_alpha=True)
-
-
-def _pl_logz_stats_alpha_lm_fwd(*args):
-    out = phone_loop_logz_stats_alpha_lm(*args)
-    return out, args + (out[1],)
-
-
-def _pl_logz_stats_alpha_lm_bwd(res, ct):
-    from beer_tpu.ops import pallas_scan
-
-    (stats_lm, bands, w, bias, trans, init_lm, final_lm, mask,
-     alphas) = res
-    ct_logz, _ct_a, _ct_n = ct
-    b = stats_lm.shape[2]
-    s = w.shape[0]
-    k_steps = pallas_scan._steps_per_block(b, s)
-    # block-entry checkpoints = init + every k-th stored α̂ (bit-equal
-    # to the ckpt kernel's ckpt_out by construction)
-    ckpts = jnp.concatenate(
-        [init_lm[None].astype(alphas.dtype),
-         alphas[k_steps - 1 :: k_steps][:-1]], axis=0)
-    full = (stats_lm, bands, w, bias, trans, init_lm, final_lm, mask,
-            ckpts)
-    return _logz_stats_lm_bwd_impl(full, (ct_logz, None))
-
-
-phone_loop_logz_stats_alpha_lm.defvjp(_pl_logz_stats_alpha_lm_fwd,
-                                      _pl_logz_stats_alpha_lm_bwd)
-
-
-@jax.custom_vjp
-def hmm_logz_stats_lm(stats_lm, w, bias, trans, init_lm, final_lm,
-                      mask):
-    """Dense-transition mirror of :func:`phone_loop_logz_stats_lm`
-    (general shared-graph HMM)."""
-    return _logz_from_kernels(stats_lm, None, w, bias, trans, init_lm,
-                              final_lm, mask)
-
-
-def _hmm_logz_stats_lm_fwd(*args):
-    out = hmm_logz_stats_lm(*args)
-    return out, args + (out[1],)
-
-
-def _hmm_logz_stats_lm_bwd(res, ct):
-    stats_lm, w, bias, trans, init_lm, final_lm, mask, ckpts = res
-    full = (stats_lm, None, w, bias, trans, init_lm, final_lm, mask,
-            ckpts)
-    (d_stats, _none, d_w, d_bias, d_trans, d_init, d_final,
-     d_mask) = _logz_stats_lm_bwd_impl(full, ct)
-    return (d_stats, d_w, d_bias, d_trans, d_init, d_final, d_mask)
-
-
-hmm_logz_stats_lm.defvjp(_hmm_logz_stats_lm_fwd, _hmm_logz_stats_lm_bwd)
-
-
-@jax.custom_vjp
-def hmm_logz_stats_alpha_lm(stats_lm, w, bias, trans, init_lm, final_lm,
-                            mask):
-    """Dense-transition mirror of
-    :func:`phone_loop_logz_stats_alpha_lm` (general shared-graph HMM):
-    returns ``(log_z, alphas, norms)`` for the recompute-free
-    accumulate pass."""
-    return _logz_from_kernels(stats_lm, None, w, bias, trans,
-                              init_lm, final_lm, mask, store_alpha=True)
-
-
-def _hmm_logz_stats_alpha_lm_fwd(*args):
-    out = hmm_logz_stats_alpha_lm(*args)
-    return out, args + (out[1],)
-
-
-def _hmm_logz_stats_alpha_lm_bwd(res, ct):
-    stats_lm, w, bias, trans, init_lm, final_lm, mask, alphas = res
-    full = (stats_lm, None, w, bias, trans, init_lm, final_lm, mask,
-            alphas)
-    (d_stats, _none, d_w, d_bias, d_trans, d_init, d_final,
-     d_mask) = _pl_logz_stats_alpha_lm_bwd(full, ct)
-    return (d_stats, d_w, d_bias, d_trans, d_init, d_final, d_mask)
-
-
-hmm_logz_stats_alpha_lm.defvjp(_hmm_logz_stats_alpha_lm_fwd,
-                               _hmm_logz_stats_alpha_lm_bwd)
-
-
-def hmm_estep_ckpt_acc_alpha_lm(stats_lm, trans, final_vec, mask, w,
-                                bias, alphas, norms):
-    """Stored-α̂ mirror of :func:`hmm_estep_ckpt_acc_lm` (full (S, S)
-    ξ, dense transitions): the forward trajectory streams in, the
-    kernel's serial loop is backward-only.  Outputs bit-identical.
-    Not differentiable (stop-gradient inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_acc_lm(
-        None, None, None, final_vec, mask, None, None, stats_lm,
-        trans=trans, w=w, bias=bias, alphas=alphas, norms=norms,
-    )
-
-
-@jax.custom_vjp
-def forward_llh_ckpt_lm(llh_lm, trans, init_vec, mask):
-    """Lane-major (S, B) variant of :func:`forward_llh_ckpt` (dense
-    (S, S) transitions, general shared-graph HMM): at small state
-    counts the batch-major tiles waste most of their 128-lane groups
-    (S=30 → 77% dead lanes) — see :func:`forward_llh_ckpt_banded_lm`.
-    ``llh_lm`` (T, S, B), ``init_vec`` (S, B); returns
-    (ckpts (n_blocks, S, B), last (S, B), logz_base (B,))."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.forward_llh_ckpt_pass_lm(
-        llh_lm, None, init_vec, mask, trans=trans,
-    )
-
-
-def _fwd_llh_ckpt_lm_fwd(*args):
-    return forward_llh_ckpt_lm(*args), args
-
-
-def _fwd_llh_ckpt_lm_bwd(res, ct):
-    llh_lm, trans, init_vec, mask = res
-    ct_ckpts, ct_last, ct_logz = ct
-    _, vjp = jax.vjp(
-        _fwd_llh_ckpt_reference, jnp.swapaxes(llh_lm, 1, 2), trans,
-        init_vec.T, mask,
-    )
-    d_llh, d_trans, d_init, d_mask = vjp(
-        (jnp.swapaxes(ct_ckpts, 1, 2), ct_last.T, ct_logz))
-    return (jnp.swapaxes(d_llh, 1, 2), d_trans, d_init.T, d_mask)
-
-
-forward_llh_ckpt_lm.defvjp(_fwd_llh_ckpt_lm_fwd, _fwd_llh_ckpt_lm_bwd)
-
-
-def hmm_estep_ckpt_lm(llh_lm, ckpts, trans, final_vec, mask):
-    """Lane-major mirror of :func:`hmm_estep_ckpt`: full (S, S) ξ with
-    identity selections on (S, B) tiles.  Returns (γ (T, S, B),
-    xi_raw (S, S)).  Not differentiable (stop-gradient inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_pass_lm(
-        llh_lm, ckpts, None, final_vec, mask, None, None, trans=trans,
-    )
-
-
-def hmm_estep_ckpt_acc_lm(stats_lm, ckpts, trans, final_vec, mask,
-                          w, bias):
-    """Accumulating + fused-ELLH lane-major general-HMM E-step: full
-    (S, S) ξ, llh computed in VMEM from the stats stream, γ reduced
-    in-kernel to (Σγᵀstats, counts) — neither llh nor γ exists in HBM.
-    ``w (S, P)`` rows are the PER-STATE affine map (pdf selection
-    folded into the columns of :meth:`NormalSet.ellh_matrix`).
-    Returns (acc2 (S, P), counts (S,), γ0 (S, B), xi_raw (S, S)).
-    Not differentiable (stop-gradient inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_acc_lm(
-        None, ckpts, None, final_vec, mask, None, None, stats_lm,
-        trans=trans, w=w, bias=bias,
-    )
-
-
-
-
-@jax.custom_vjp
-def forward_stats_ckpt(stats_tm, w, bias, trans, init_vec, mask):
-    """Fused-ELLH checkpointed forward: streams the reduced sufficient
-    statistics (T, B, P) and computes ``llh = stats @ W + bias`` on the
-    MXU inside the kernel — the (T, B, S) llh array never exists in HBM
-    (it is the scan kernels' dominant stream; docs/PERFORMANCE.md).
-    Same returns as :func:`forward_llh_ckpt`.  custom_vjp recomputes
-    through the matmul + jnp scan (SVAE ∂log Z/∂stats)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.forward_llh_ckpt_pass(
-        stats_tm, trans, init_vec, mask, w=w, bias=bias,
-    )
-
-
-def _fwd_stats_ckpt_reference(stats_tm, w, bias, trans, init_vec, mask):
-    from beer_tpu.ops import pallas_scan
-
-    llh_tm = jnp.matmul(
-        stats_tm, w, precision=jax.lax.Precision.HIGHEST
-    ) + bias
-    p, norms, mllh = _fwd_llh_reference(llh_tm, trans, init_vec, mask)
-    t_len, b, p_dim = stats_tm.shape
-    s = w.shape[1]
-    k = pallas_scan._steps_per_block(b, max(s, p_dim))
-    n_blocks = -(-t_len // k)
-    entries = [jnp.broadcast_to(init_vec, (b, s)).astype(llh_tm.dtype)]
-    for g in range(1, n_blocks):
-        entries.append(p[g * k - 1])
-    logz_base = (jnp.log(norms) * mask.T).sum(0) + mllh.sum(0)
-    return jnp.stack(entries), p[-1], logz_base
-
-
-def _fwd_stats_ckpt_fwd(*args):
-    return forward_stats_ckpt(*args), args
-
-
-def _fwd_stats_ckpt_bwd(res, ct):
-    _, vjp = jax.vjp(_fwd_stats_ckpt_reference, *res)
-    return vjp(ct)
-
-
-forward_stats_ckpt.defvjp(_fwd_stats_ckpt_fwd, _fwd_stats_ckpt_bwd)
-
-
-def phone_loop_estep_ckpt_acc(llh_tm, stats_tm, ckpts, trans,
-                              final_vec, mask, sel_r, sel_c):
-    """γ-fused variant of :func:`phone_loop_estep_ckpt`: the (T, B, S)
-    γ stream is replaced by its accumulated training consumers —
-    returns (xi_raw (n_r, n_c), emission moment Σγᵀstats (S, P),
-    per-state counts (S,), γ(t=0) (B, S)).  γ never exists in HBM;
-    the per-block transpose-dot hides behind the stream
-    (tools/exp_inkernel_acc.py).  Not differentiable (stop-gradient
-    inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_pass(
-        llh_tm, ckpts, trans, final_vec, mask, sel_r, sel_c,
-        stats_tm=stats_tm,
-    )
-
-
-def phone_loop_estep_stats_ckpt(stats_tm, w, bias, ckpts, trans,
-                                final_vec, mask, sel_r, sel_c):
-    """Fused-ELLH variant of :func:`phone_loop_estep_ckpt`: streams the
-    reduced stats and regenerates llh in-kernel with the same MXU op as
-    the fused forward (bit-identical α̂ recompute).  Not differentiable
-    (stop-gradient inputs)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_pass(
-        stats_tm, ckpts, trans, final_vec, mask, sel_r, sel_c,
-        w=w, bias=bias,
-    )
-
-
-def phone_loop_estep_ckpt(llh_tm, ckpts, trans, final_vec, mask,
-                          sel_r, sel_c):
-    """Fused phone-loop smoothing + restricted ξ from forward
-    checkpoints — the α̂ tile and per-step norms are regenerated in VMEM
-    (bit-identical ops), so only llh, the checkpoints, and γ cross HBM.
-    Not differentiable (stop-gradient inputs, as
-    :func:`phone_loop_estep`)."""
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_ckpt_pass(
-        llh_tm, ckpts, trans, final_vec, mask, sel_r, sel_c,
-    )
-
-
-def phone_loop_estep(llh_tm, a_tm, norms_tm, trans, final_vec,
-                     mask, sel_r, sel_c):
-    """Fused phone-loop smoothing + in-kernel restricted ξ (Pallas; TPU
-    only); returns (γ (T, B, S), raw ξ outer (n_r, n_c)).
-
-    See :func:`beer_tpu.ops.pallas_scan.phone_loop_estep_pass`.  Not
-    differentiable — conjugate statistics never carry gradients; callers
-    stop-gradient the inputs.  jnp reference for tests:
-    :func:`phone_loop_estep_reference`.
-    """
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.phone_loop_estep_pass(
-        llh_tm, a_tm, norms_tm, trans, final_vec, mask, sel_r, sel_c,
-    )
-
-
-def phone_loop_estep_reference(llh, log_trans, log_init, log_final,
-                               mask, rows, cols):
-    """jnp composition equal to the fused E-step kernel (batch-major
-    llh): (γ posteriors (B, T, S), raw ξ outer (R, C))."""
-    fbp = forward_backward_probs(llh, log_trans, log_init, log_final, mask)
-    xi = expected_transition_counts_probs(
-        fbp, log_trans, mask, rows=rows, cols=cols
-    )
-    trans_blk = jnp.exp(log_trans)[rows][:, cols]
-    xi_raw = xi / jnp.maximum(trans_blk, jnp.finfo(llh.dtype).tiny)
-    xi_raw = jnp.where(trans_blk > 0, xi_raw, 0.0)
-    return fbp.posteriors, xi_raw
-
-
 def bands_to_dense(bands) -> jnp.ndarray:
     """(a_self, a_adv, exit, w) → the dense (S, S) probability matrix
     ``diag(a_self) + superdiag(a_adv) + outer(exit, w)``."""
@@ -936,118 +296,20 @@ def bands_to_dense(bands) -> jnp.ndarray:
     )
 
 
-@jax.custom_vjp
-def _banded_fwd_pallas(e_llh, bands, vec, mask):
-    from beer_tpu.ops import pallas_scan
-
-    probs, logcs, _ = pallas_scan.forward_pass_banded(e_llh, bands, vec, mask)
-    return probs, logcs
-
-
-def _banded_fwd_fwd(*args):
-    return _banded_fwd_pallas(*args), args
-
-
-def _banded_fwd_bwd(res, ct):
-    _, vjp = jax.vjp(
-        lambda e, b, v, m: _scaled_pass(e, bands_to_dense(b), v, m, False)[:2],
-        *res,
-    )
-    return vjp(ct)
-
-
-_banded_fwd_pallas.defvjp(_banded_fwd_fwd, _banded_fwd_bwd)
-
-
-@jax.custom_vjp
-def _banded_smoothing_pallas(e_llh, bands, final_vec, mask, a_probs):
-    from beer_tpu.ops import pallas_scan
-
-    return pallas_scan.backward_smoothing_banded(
-        e_llh, bands, final_vec, mask, a_probs
-    )
-
-
-def _banded_smooth_fwd(*args):
-    return _banded_smoothing_pallas(*args), args
-
-
-def _banded_smooth_bwd(res, ct):
-    _, vjp = jax.vjp(
-        lambda e, b, f, m, a: _smoothing_scan(e, bands_to_dense(b), f, m, a),
-        *res,
-    )
-    return vjp(ct)
-
-
-_banded_smoothing_pallas.defvjp(_banded_smooth_fwd, _banded_smooth_bwd)
-
-
-def _make_pallas_diffable(reverse: bool, time_major: bool = False):
-    """Pallas pass wrapped in ``custom_vjp``: kernel forward, jnp backward.
-
-    The Pallas kernels have no JVP rule, but callers may differentiate
-    through the recursions (the sequence SVAE's encoder gradient needs
-    ∂log Z/∂llh).  The VJP recomputes the pass with the differentiable
-    ``_scaled_pass`` scan — bit-equivalent semantics, and the backward
-    only runs when something actually differentiates through the pass.
-    """
-
-    def reference(e, t, v, m):
-        if not time_major:
-            return _scaled_pass(e, t, v, m, reverse)[:2]
-        p, l, _ = _scaled_pass(jnp.swapaxes(e, 0, 1), t, v, m, reverse)
-        return jnp.swapaxes(p, 0, 1), l.T
-
-    @jax.custom_vjp
-    def run(e_llh, trans, vec, mask):
-        from beer_tpu.ops import pallas_scan
-
-        if reverse:
-            probs, logcs, _ = pallas_scan.backward_pass(
-                e_llh, trans, vec, mask
-            )
-        else:
-            probs, logcs, _ = pallas_scan.forward_pass(
-                e_llh, trans, vec, mask, time_major=time_major
-            )
-        return probs, logcs
-
-    def fwd(e_llh, trans, vec, mask):
-        return run(e_llh, trans, vec, mask), (e_llh, trans, vec, mask)
-
-    def bwd(res, ct):
-        _, vjp = jax.vjp(reference, *res)
-        return vjp(ct)
-
-    run.defvjp(fwd, bwd)
+def _with_scan_vjp(kernel, reference):
+    """``kernel`` forward, the VJP of the plain scan ``reference`` as its
+    backward (Pallas kernels have no autodiff rule)."""
+    run = jax.custom_vjp(kernel)
+    run.defvjp(lambda *args: (run(*args), args),
+               lambda args, ct: jax.vjp(reference, *args)[1](ct))
     return run
 
 
-_PALLAS_FWD = _make_pallas_diffable(False)
-_PALLAS_BWD = _make_pallas_diffable(True)
-_PALLAS_FWD_TM = _make_pallas_diffable(False, time_major=True)
-
-
-def _select_pass(trans):
-    """Pallas fused kernel on TPU (shared graphs); jnp scan elsewhere.
-
-    Per-utterance (B, S, S) transition matrices fall back to the scan —
-    the kernel keeps one (S, S) matrix resident in VMEM.  Both paths
-    return ``(probs, logcs, (last_prob, last_logc))``; the last-valid
-    values equal the final stored row because masked steps copy the
-    carry into the outputs.
-    """
-    from beer_tpu.ops import pallas_scan
-
-    if trans.ndim == 2 and pallas_scan.available():
-        def run(e_llh, trans, vec, mask, reverse):
-            f = _PALLAS_BWD if reverse else _PALLAS_FWD
-            probs, logcs = f(e_llh, trans, vec, mask)
-            return probs, logcs, (probs[:, -1], logcs[:, -1])
-
-        return run
-    return _scaled_pass
+# the GPU kernel pair, differentiable through the plain scans
+_KERNEL_FWD = _with_scan_vjp(
+    triton_scan.forward_pass,
+    lambda e, t, v, m: _scaled_pass(e, t, v, m, reverse=False)[:2])
+_KERNEL_SMOOTH = _with_scan_vjp(triton_scan.smoothing_pass, _smoothing_scan)
 
 
 def forward_backward(
@@ -1075,8 +337,7 @@ def forward_backward(
 
     trans = jnp.exp(log_trans)
     init_vec = jnp.broadcast_to(jnp.exp(_clamp(log_init)), (b, s)).astype(llh.dtype)
-    run = _select_pass(trans)
-    a_probs, a_logcs, (a_last, a_logc_last) = run(
+    a_probs, a_logcs, (a_last, a_logc_last) = _scaled_pass(
         e_llh, trans, init_vec, mask, reverse=False
     )
     log_alpha = jnp.log(jnp.maximum(a_probs, tiny)) + (
@@ -1085,7 +346,9 @@ def forward_backward(
 
     final_vec = jnp.broadcast_to(jnp.exp(_clamp(log_final)), (b, s)).astype(llh.dtype)
     # backward pass consumes e_llh at t+1; shift bookkeeping mirrors fwd
-    b_probs, b_logcs, _ = run(e_llh, trans, final_vec, mask, reverse=True)
+    b_probs, b_logcs, _ = _scaled_pass(
+        e_llh, trans, final_vec, mask, reverse=True
+    )
     # shift for beta_t: sum of m_llh over (t+1 .. T-1) on valid frames
     total_shift = shift_fwd[:, -1:]
     shift_bwd = total_shift - shift_fwd
@@ -1110,8 +373,6 @@ def forward_backward_probs(
     log_init: jnp.ndarray,
     log_final: jnp.ndarray,
     mask: Optional[jnp.ndarray] = None,
-    time_major: bool = False,
-    structured_trans=None,
 ) -> FBProbs:
     """Probability-space smoothing — the training hot path.
 
@@ -1124,70 +385,41 @@ def forward_backward_probs(
     is *exactly* ``softmax(log_alpha + log_beta)`` (the per-(b, t)
     log-scale constants cancel in the normalization).  The backward
     recursion runs fused with the smoothing (γ, ξ-factors, and their
-    normalizers emitted in-step — one Pallas kernel on TPU, the
-    ``_smoothing_scan`` jnp scan elsewhere).  ξ-counts come from
+    normalizers emitted in-step).  ξ-counts come from
     :func:`expected_transition_counts_probs` on the same by-products.
     Tests assert agreement with the log path; :class:`FBResult` remains
     available via :func:`forward_backward` for log-domain consumers.
 
-    ``time_major=True`` takes llh as (T, B, S) and returns every (·, ·,
-    S) / per-frame field time-major ((T, B, S) / (T, B)); mask stays
-    (B, T).  This is the fastest layout on TPU — the kernels are
-    time-major natively, so no (B, T, S) transposes run at all; pass
-    the flag through to :func:`expected_transition_counts_probs`.
+    On a GPU with one shared (S, S) matrix both passes run as Pallas
+    kernels (:mod:`beer_tpu.ops.triton_scan`); elsewhere, and for
+    per-utterance (B, S, S) matrices, as ``lax.scan``.
     """
-    from beer_tpu.ops import pallas_scan
-
-    if time_major:
-        t_len, b, s = llh.shape
-    else:
-        b, t_len, s = llh.shape
+    b, t_len, s = llh.shape
     if mask is None:
         mask = jnp.ones((b, t_len), llh.dtype)
     tiny = jnp.finfo(llh.dtype).tiny
-    m_e = mask.T[..., None] if time_major else mask[..., None]
+    m_e = mask[..., None]
     m_llh = jnp.max(llh, axis=-1, keepdims=True)
     e_llh = jnp.exp(llh - m_llh) * m_e + (1 - m_e) * 1.0
-    shift_total = (m_llh[..., 0] * m_e[..., 0]).sum(0 if time_major else 1)
+    shift_total = (m_llh[..., 0] * mask).sum(1)
 
     trans = jnp.exp(log_trans)
     init_vec = jnp.broadcast_to(jnp.exp(_clamp(log_init)), (b, s)).astype(llh.dtype)
     final_vec = jnp.broadcast_to(jnp.exp(_clamp(log_final)), (b, s)).astype(llh.dtype)
-    use_pallas = trans.ndim == 2 and pallas_scan.available()
-    if use_pallas and structured_trans is not None and not time_major:
-        # Band + rank-1 transition structure (phone loops): the kernels
-        # replace the per-step (B, S) @ (S, S) MXU matmul with five VPU
-        # passes.  ``structured_trans`` must densify to exp(log_trans)
-        # (PhoneLoop guarantees it; tests assert equality).
-        a_probs, a_logcs = _banded_fwd_pallas(
-            e_llh, structured_trans, init_vec, mask
-        )
+    if triton_scan.use_kernel(trans, llh.dtype):
+        a_probs, a_logcs = _KERNEL_FWD(e_llh, trans, init_vec, mask)
+        # masked steps copy the carry, so the last row is the last valid one
         a_last, a_logc_last = a_probs[:, -1], a_logcs[:, -1]
-        gamma, w, wsum, pnorm = _banded_smoothing_pallas(
-            e_llh, structured_trans, final_vec, mask, a_probs
+        gamma, w, wsum, pnorm = _KERNEL_SMOOTH(
+            e_llh, trans, final_vec, mask, a_probs
         )
-    elif use_pallas:
-        fwd_run = _PALLAS_FWD_TM if time_major else _PALLAS_FWD
-        a_probs, a_logcs = fwd_run(e_llh, trans, init_vec, mask)
-        a_last = a_probs[-1] if time_major else a_probs[:, -1]
-        a_logc_last = a_logcs[-1] if time_major else a_logcs[:, -1]
-        gamma, w, wsum, pnorm = (
-            _smoothing_pallas_tm if time_major else _smoothing_pallas
-        )(e_llh, trans, final_vec, mask, a_probs)
     else:
-        e_bm = jnp.swapaxes(e_llh, 0, 1) if time_major else e_llh
         a_probs, a_logcs, (a_last, a_logc_last) = _scaled_pass(
-            e_bm, trans, init_vec, mask, reverse=False
+            e_llh, trans, init_vec, mask, reverse=False
         )
         gamma, w, wsum, pnorm = _smoothing_scan(
-            e_bm, trans, final_vec, mask, a_probs
+            e_llh, trans, final_vec, mask, a_probs
         )
-        if time_major:
-            a_probs = jnp.swapaxes(a_probs, 0, 1)
-            a_logcs = a_logcs.T
-            gamma = jnp.swapaxes(gamma, 0, 1)
-            w = jnp.swapaxes(w, 0, 1)
-            wsum, pnorm = wsum.T, pnorm.T
     log_z = a_logc_last + shift_total + jnp.log(
         jnp.maximum((a_last * final_vec).sum(-1), tiny)
     )
@@ -1200,7 +432,6 @@ def expected_transition_counts_probs(
     mask: Optional[jnp.ndarray] = None,
     rows: Optional[jnp.ndarray] = None,
     cols: Optional[jnp.ndarray] = None,
-    time_major: bool = False,
 ) -> jnp.ndarray:
     """ξ-counts from the probability-space carries of
     :func:`forward_backward_probs` — the fast path of
@@ -1226,42 +457,27 @@ def expected_transition_counts_probs(
     """
     tiny = jnp.finfo(fbp.probs_fwd.dtype).tiny
     logcs = fbp.fwd_log_scales
-    if time_major:
-        t_len, b = fbp.w_sums.shape
-        u = fbp.probs_fwd[:-1]                         # (T-1, B, S)
-        w = fbp.probs_w[1:]
-        step_norm = jnp.exp(logcs[1:] - logcs[:-1])    # c_{t+1}, (T-1, B)
-        denom = step_norm * fbp.post_norm[1:] / jnp.maximum(
-            fbp.w_sums[1:], tiny
-        )
-        m_tail = jnp.ones((t_len - 1, b), u.dtype) if mask is None \
-            else mask.T[1:]
-    else:
-        b, t_len = fbp.w_sums.shape
-        u = fbp.probs_fwd[:, :-1]                      # (B, T-1, S)
-        w = fbp.probs_w[:, 1:]
-        step_norm = jnp.exp(logcs[:, 1:] - logcs[:, :-1])
-        denom = step_norm * fbp.post_norm[:, 1:] / jnp.maximum(
-            fbp.w_sums[:, 1:], tiny
-        )
-        m_tail = jnp.ones((b, t_len - 1), u.dtype) if mask is None \
-            else mask[:, 1:]
+    b, t_len = fbp.w_sums.shape
+    u = fbp.probs_fwd[:, :-1]                      # (B, T-1, S)
+    w = fbp.probs_w[:, 1:]
+    step_norm = jnp.exp(logcs[:, 1:] - logcs[:, :-1])   # c_{t+1}
+    denom = step_norm * fbp.post_norm[:, 1:] / jnp.maximum(
+        fbp.w_sums[:, 1:], tiny
+    )
+    m_tail = jnp.ones((b, t_len - 1), u.dtype) if mask is None \
+        else mask[:, 1:]
     weight = jnp.where(denom > 1e-30, m_tail / jnp.maximum(denom, 1e-30), 0.0)
-    return _xi_outer(u, w, weight, jnp.exp(log_trans), rows, cols,
-                     "tbi,tbj,tb->ij" if time_major else "bti,btj,bt->ij")
+    return _xi_outer(u, w, weight, jnp.exp(log_trans), rows, cols)
 
 
-def _xi_outer(u, w, weight, trans_prob, rows, cols,
-              spec: str = "bti,btj,bt->ij"):
+def _xi_outer(u, w, weight, trans_prob, rows, cols):
     """Σ_t weight_t · outer(u_t, w_t) ⊙ A, optionally restricted.
 
-    Restriction uses one-hot selection *matmuls*, not fancy-index
-    gathers: a strided gather along the minor (lane) axis of a (B, T, S)
-    array is a per-element op on TPU — orders of magnitude slower than
-    the equivalent (B·T, S) @ (S, n) MXU contraction.  The (batch, time)
-    axes are contracted in place (no reshape — an explicit flatten of
-    the sliced operands forces full-size copies XLA otherwise fuses
-    away).
+    Restriction uses one-hot selection *matmuls* (one (B·T, S) @ (S, n)
+    contraction) rather than a strided gather along the minor axis.  The
+    (batch, time) axes are contracted in place (no reshape — an explicit
+    flatten of the sliced operands forces full-size copies XLA otherwise
+    fuses away).
     """
     if rows is not None:
         s = u.shape[-1]
@@ -1271,11 +487,11 @@ def _xi_outer(u, w, weight, trans_prob, rows, cols,
         w = jnp.matmul(w, sel_c.T, precision=jax.lax.Precision.HIGHEST)
         # the (S, S) block restriction stays a *gather* — it is tiny, and
         # a selection matmul at default precision rounds the transition
-        # probabilities to bf16 (~0.3% ξ bias, caught against an f64
-        # brute-force forward-backward oracle)
+        # probabilities (bf16 or TF32 by backend: ~0.3% ξ bias, caught
+        # against an f64 brute-force forward-backward oracle)
         trans_prob = trans_prob[rows][:, cols]
     outer = jnp.einsum(
-        spec, u, w, weight,
+        "bti,btj,bt->ij", u, w, weight,
         precision=jax.lax.Precision.HIGHEST,
     )
     return outer * trans_prob
@@ -1303,7 +519,7 @@ def expected_transition_counts(
 
         ξ_t = outer(u_t, w_t) ⊙ A / (u_tᵀ A w_t),  u, w per-frame softmaxed.
 
-    The accumulation over (b, t) is one einsum (MXU contraction); no
+    The accumulation over (b, t) is one einsum contraction; no
     (T, S, S) tensor is ever materialized.
 
     ``rows``/``cols`` (int arrays) restrict the *output* to the sub-block
@@ -1475,7 +691,7 @@ def viterbi_banded(
     ``bands = (a_self, a_adv, exit, w)`` probability-space vectors with
     ``bands_to_dense(bands) == exp(log_trans)`` exactly and NO
     overlapping contributions (the phone-loop guarantee,
-    ``PhoneLoop._structured_trans``).  Per step this is O(B*S) VPU work
+    ``PhoneLoop._structured_trans``).  Per step this is O(B*S) work
     — the dense :func:`viterbi` builds a (B, S, S) candidate tensor —
     and the backtrace state is 1 int8 choice per (t, b, s) plus one
     exit argmax per (t, b) instead of an int32 backpointer per state.
@@ -1496,47 +712,29 @@ def viterbi_banded(
     ls, la, le, lw = (logv(v.astype(dt)) for v in
                       (a_self, a_adv, exit_scat, w_scat))
 
-    from beer_tpu.ops import pallas_scan
+    neg = jnp.full((b, 1), _NEG_INF, dt)
 
-    if pallas_scan.available() and t_len > 1 and s >= 64:
-        # kernel forward + kernel one-hot backtrace: the whole (max,+)
-        # chain and the reverse pointer chase run in VMEM — ~1000
-        # serial XLA dispatches collapse into time-blocked kernels.
-        # (s >= 64: below that the kernels waste most of every vreg —
-        # measured slower than dense at S=36, tools/exp_align_bench.py)
-        ch, ex_args, alpha_last = pallas_scan.viterbi_fwd_banded(
-            llh, (ls, la, le, lw), _clamp(log_init), mask)
-        final_sc = alpha_last + log_final
-        best_last = jnp.argmax(final_sc, axis=-1).astype(jnp.int32)
-        best_score = jnp.max(final_sc, axis=-1)
-        last_onehot = jax.nn.one_hot(best_last, s, dtype=jnp.float32)
-        paths = pallas_scan.viterbi_backtrace_banded(
-            ch, ex_args, last_onehot)
-        return paths, best_score
-    else:
-        neg = jnp.full((b, 1), _NEG_INF, dt)
+    def fwd_step(alpha, inp):
+        llh_t, m_t = inp
+        c_self = alpha + ls
+        c_adv = jnp.concatenate([neg, (alpha + la)[:, :-1]], axis=1)
+        ex = alpha + le
+        ex_arg = jnp.argmax(ex, axis=-1).astype(jnp.int32)   # (B,)
+        c_loop = jnp.max(ex, axis=-1, keepdims=True) + lw
+        stacked = jnp.stack([c_self, c_adv, c_loop])         # (3, B, S)
+        choice = jnp.argmax(stacked, axis=0).astype(jnp.int8)
+        new = _clamp(llh_t + jnp.max(stacked, axis=0))
+        alpha_new = m_t * new + (1 - m_t) * alpha
+        choice = jnp.where(m_t > 0, choice, jnp.int8(0))     # pads: stay
+        ex_arg = jnp.where(m_t[:, 0] > 0, ex_arg, 0)
+        return alpha_new, (choice, ex_arg)
 
-        def fwd_step(alpha, inp):
-            llh_t, m_t = inp
-            c_self = alpha + ls
-            c_adv = jnp.concatenate([neg, (alpha + la)[:, :-1]], axis=1)
-            ex = alpha + le
-            ex_arg = jnp.argmax(ex, axis=-1).astype(jnp.int32)   # (B,)
-            c_loop = jnp.max(ex, axis=-1, keepdims=True) + lw
-            stacked = jnp.stack([c_self, c_adv, c_loop])         # (3, B, S)
-            choice = jnp.argmax(stacked, axis=0).astype(jnp.int8)
-            new = _clamp(llh_t + jnp.max(stacked, axis=0))
-            alpha_new = m_t * new + (1 - m_t) * alpha
-            choice = jnp.where(m_t > 0, choice, jnp.int8(0))     # pads: stay
-            ex_arg = jnp.where(m_t[:, 0] > 0, ex_arg, 0)
-            return alpha_new, (choice, ex_arg)
-
-        alpha_last, (choices, ex_args) = jax.lax.scan(
-            fwd_step,
-            _clamp(log_init + llh[:, 0]),
-            (jnp.swapaxes(llh[:, 1:], 0, 1),
-             jnp.swapaxes(mask[:, 1:, None], 0, 1)),
-        )
+    alpha_last, (choices, ex_args) = jax.lax.scan(
+        fwd_step,
+        _clamp(log_init + llh[:, 0]),
+        (jnp.swapaxes(llh[:, 1:], 0, 1),
+         jnp.swapaxes(mask[:, 1:, None], 0, 1)),
+    )
     best_last = jnp.argmax(alpha_last + log_final, axis=-1).astype(jnp.int32)
     best_score = jnp.max(alpha_last + log_final, axis=-1)
 

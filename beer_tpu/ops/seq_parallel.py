@@ -10,7 +10,7 @@ prefix-product formulation of arXiv:2102.05743, distributed):
    takes their inclusive log-semiring prefix with
    ``lax.associative_scan`` (O(log T_local) depth),
 2. block operators are combined *across devices* with a Hillis-Steele
-   scan over ``lax.ppermute`` rounds (O(log n_dev) ICI hops),
+   scan over ``lax.ppermute`` rounds (O(log n_dev) interconnect hops),
 3. the exclusive device-prefix seeds each device's local alphas with one
    batched semiring product.
 

@@ -1,107 +1,27 @@
-"""Pallas TPU kernels for the full-covariance sufficient-statistics path.
+"""Full-covariance Gaussian statistics computed from raw frames.
 
-SURVEY.md §2.9 / §7 step 6: the reference's hottest dense op is the
-per-frame full-covariance statistic s(x) = [vec(−½xxᵀ), x, −½, ½] —
-O(T·D²) memory if materialized (e.g. 39-dim features, 64k frames ⇒
-~400 MB in HBM *twice* per E-step: once for the ELLH contraction, once
-for the accumulation).  These kernels build the xxᵀ block **in VMEM a
-tile at a time** and feed it straight to the MXU, so only X (T, D) and
-the (K, P) results ever touch HBM:
-
-* :func:`fused_ellh_full` — per-frame expected log-likelihood of K
-  components: tile-local xxᵀ → two `jnp.dot`s against the expected
-  natural parameters (f32 accumulation).
-* :func:`fused_accumulate_full` — responsibility-weighted statistics:
-  tile-local xxᵀ → `rᵀ @ [vec(xxᵀ), x]` accumulated in VMEM scratch
-  across the time grid, written once on the last tile.
-
-Both have exact jnp fallbacks (`*_xla`) used on CPU and in tests
-(``interpret=True`` checks kernel == fallback).  Wiring: NormalSet uses
-them automatically for ``cov_type='full'`` on TPU when shapes qualify
-(see :func:`use_fused_full`).
+The per-frame full-covariance statistic s(x) = [vec(−½xxᵀ), x, −½, ½]
+is O(T·D²) when materialized.  :func:`ellh_full_xla` scores raw frames
+against the expected natural parameters without building it;
+:func:`accumulate_full_xla` and :func:`gmm_estep_xla` are the
+responsibility-weighted statistics and the whole GMM E-step in the same
+raw-frame form.  All run at ``HIGHEST`` precision and agree with the
+materialized ``NormalSet`` path (tests assert it).
 """
 
 from __future__ import annotations
 
-import functools
 import math
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 LOG_2PI = math.log(2.0 * math.pi)
 
-TILE_T = 256
-
-
-def _pad_time(x, tile):
-    t = x.shape[0]
-    pad = (-t) % tile
-    if pad:
-        x = jnp.pad(x, ((0, pad),) + ((0, 0),) * (x.ndim - 1))
-    return x, t
-
-
-# ----------------------------------------------------------------------
-# Fused ELLH: llh[t, k] = -1/2 Σ_ij x_i x_j E[Λ_k]_ij + Σ_i x_i E[Λμ_k]_i
-#                         - 1/2 E[μΛμ]_k + 1/2 E[log|Λ|]_k - D/2 log 2π
-# ----------------------------------------------------------------------
-def _flat_outer(x):
-    """Column-blocked xxᵀ flattening: out[:, i·D+j] = x_i·x_j.
-
-    Built with a static concat of (Tt, D) column products — Mosaic cannot
-    lower the (Tt, D, D) → (Tt, D²) vector reshape, so the 3-D outer
-    product is never formed.
-    """
-    d = x.shape[-1]
-    return jnp.concatenate([x[:, i : i + 1] * x for i in range(d)], axis=1)
-
-
-def _ellh_kernel(x_ref, elam_ref, elin_ref, const_ref, out_ref):
-    x = x_ref[:]                                     # (Tt, D)
-    xx = _flat_outer(x)
-    quad = jnp.dot(
-        xx, elam_ref[:], preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                                # (Tt, K) via (D², K)
-    lin = jnp.dot(x, elin_ref[:], preferred_element_type=jnp.float32,
-                  precision=jax.lax.Precision.HIGHEST)
-    out_ref[:] = (-0.5 * quad + lin + const_ref[:]).astype(out_ref.dtype)
-
-
-def fused_ellh_full(x, e_stats, dim: int, interpret: bool = False):
-    """(T, D) frames × (K, D²+D+2) expected stats → (T, K) ELLH."""
-    k = e_stats.shape[0]
-    d = dim
-    elam = e_stats[:, : d * d].T                     # (D², K)
-    elin = e_stats[:, d * d : d * d + d].T           # (D, K)
-    const = (
-        -0.5 * e_stats[:, -2] + 0.5 * e_stats[:, -1] - 0.5 * d * LOG_2PI
-    )[None, :]                                       # (1, K)
-    x_p, t = _pad_time(x, TILE_T)
-    grid = (x_p.shape[0] // TILE_T,)
-    out = pl.pallas_call(
-        _ellh_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((TILE_T, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d * d, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (TILE_T, k), lambda i: (i, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((x_p.shape[0], k), x.dtype),
-        interpret=interpret,
-    )(x_p, elam.astype(x.dtype), elin.astype(x.dtype), const.astype(x.dtype))
-    return out[:t]
-
 
 def ellh_full_xla(x, e_stats, dim: int):
-    """Exact jnp fallback (and CPU path)."""
+    """(T, D) frames → (T, K) expected log-likelihoods, no (T, D²)
+    statistics."""
     d = dim
     elam = e_stats[:, : d * d].reshape(-1, d, d)
     elin = e_stats[:, d * d : d * d + d]
@@ -113,63 +33,9 @@ def ellh_full_xla(x, e_stats, dim: int):
     return -0.5 * quad + lin + const
 
 
-# ----------------------------------------------------------------------
-# Fused accumulation: acc[k] = Σ_t r[t,k] · s(x_t)
-# ----------------------------------------------------------------------
-def _acc_kernel(x_ref, r_ref, out_ref, acc_xx, acc_x, acc_c):
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        acc_xx[:] = jnp.zeros_like(acc_xx)
-        acc_x[:] = jnp.zeros_like(acc_x)
-        acc_c[:] = jnp.zeros_like(acc_c)
-
-    x = x_ref[:]                                     # (Tt, D)
-    r = r_ref[:]                                     # (Tt, K)
-    xx = _flat_outer(x)
-    acc_xx[:] += jnp.dot(r.T, xx, preferred_element_type=jnp.float32,
-                          precision=jax.lax.Precision.HIGHEST)
-    acc_x[:] += jnp.dot(r.T, x, preferred_element_type=jnp.float32,
-                         precision=jax.lax.Precision.HIGHEST)
-    acc_c[:] += jnp.sum(r, axis=0, keepdims=True).astype(jnp.float32)
-
-    @pl.when(pl.program_id(0) == pl.num_programs(0) - 1)
-    def _():
-        counts = acc_c[:].T                          # (K, 1)
-        out_ref[:] = jnp.concatenate(
-            [-0.5 * acc_xx[:], acc_x[:], -0.5 * counts, 0.5 * counts],
-            axis=1,
-        ).astype(out_ref.dtype)
-
-
-def fused_accumulate_full(x, resps, interpret: bool = False):
-    """(T, D) frames × (T, K) responsibilities → (K, D²+D+2) statistics."""
-    d = x.shape[-1]
-    k = resps.shape[-1]
-    x_p, _ = _pad_time(x, TILE_T)
-    r_p, _ = _pad_time(resps, TILE_T)  # zero rows contribute nothing
-    grid = (x_p.shape[0] // TILE_T,)
-    return pl.pallas_call(
-        _acc_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((TILE_T, d), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((TILE_T, k), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (k, d * d + d + 2), lambda i: (0, 0), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((k, d * d + d + 2), x.dtype),
-        scratch_shapes=[
-            pltpu.VMEM((k, d * d), jnp.float32),
-            pltpu.VMEM((k, d), jnp.float32),
-            pltpu.VMEM((1, k), jnp.float32),
-        ],
-        interpret=interpret,
-    )(x_p, r_p)
-
-
 def accumulate_full_xla(x, resps):
-    """Exact jnp fallback: materializes the (T, P) statistics."""
+    """(T, D) frames × (T, K) responsibilities → (K, D²+D+2)
+    statistics (materializes the (T, P) statistics)."""
     from beer_tpu.dists.normallik import suff_stats_full
 
     return jnp.einsum(
@@ -178,214 +44,9 @@ def accumulate_full_xla(x, resps):
     )
 
 
-# ----------------------------------------------------------------------
-# Fully-fused GMM E-step (one kernel per epoch pass)
-#
-# Replaces the fused_ellh_full + softmax + fused_accumulate_full chain
-# (which built the xx^T block twice with a lane-misaligned concat, ran
-# every matmul at HIGHEST = 6 bf16 passes, and round-tripped the (T, K)
-# responsibilities through HBM).  Design, measured on a v5e chip
-# (tools/exp_gmm_fused.py, tools/exp_xx_build.py):
-#
-# * The augmented statistics row S = [xx_ut | x | 1] (upper-triangular
-#   xx^T: D(D+1)/2 lanes instead of D^2) is built by TWO one-pass
-#   selector matmuls A = xcat @ E1, B = xcat @ E2, S = A*B — the MXU
-#   does the lane broadcast the VPU concat choked on (5.5 -> 2.1 ms).
-# * xcat is the frame vector split into three bf16 limbs [hi mid lo]
-#   (8+8+8 = 24 mantissa bits = exact f32) laid side by side: the
-#   3*(D+1) <= 128 contraction lanes make the exact reconstruction
-#   FREE — one DEFAULT-precision pass instead of HIGHEST's six.
-# * One weight matrix W (L, K) holds -1/2*E[Lam] (off-diagonals doubled
-#   for the ut packing), E[Lam mu], and const + E[log w], so S @ W is
-#   the complete joint log-density — no separate lin/const adds.
-# * The joint S @ W and the accumulation rᵀ @ S run at HIGHEST
-#   precision in f32 — the exact algorithm the round-3 two-kernel path
-#   ran, so trajectory quality is inherited by construction (measured:
-#   the old route tracks the pure-XLA reference at 6.4e-5 |dELBO|/frame
-#   over 15 VB iterations).  Cheaper bf16-limb-packed variants (2-pass
-#   and 4-pass joints, 2-pass accumulation — tools/exp_gmm_v2.py) were
-#   built and measured 3.0-3.4x, but FAILED the trajectory gate
-#   (0.09-0.14 |dELBO|/frame, non-monotone VB): the expanded quadratic
-#   form cancels catastrophically once |x|~6 and E[Lam] sharpens, and
-#   the M-step's covariance cancellation (Sxx − c·μμᵀ) amplifies
-#   16-bit responsibility quantization into visible ELBO oscillation.
-#   The fusion itself (single S build, no HBM round-trip for llh_k or
-#   responsibilities) is where the speedup lives.
-# * Per-frame log-marginals are the only per-frame HBM write; the
-#   responsibilities never leave VMEM.
-# ----------------------------------------------------------------------
-GMM_TILE_T = 512  # 1024 OOMs the 16MB scoped-vmem limit (measured: 16.7M)
-
-
-def _ut_pairs(d: int):
-    return [(i, j) for i in range(d) for j in range(i, d)]
-
-
-@functools.cache
-def _gmm_selectors(d: int):
-    """E1, E2 (3*(d+1), L) bf16 0/1 with S = (xcat@E1) * (xcat@E2) =
-    [x_i*x_j (i<=j) | x | 1] for xcat = [hi(x,1) mid(x,1) lo(x,1)]."""
-    import numpy as np
-
-    pairs = _ut_pairs(d)
-    n_ut = len(pairs)
-    L = n_ut + d + 1
-    da = d + 1
-    e1 = np.zeros((da, L), np.float32)
-    e2 = np.zeros((da, L), np.float32)
-    for l, (i, j) in enumerate(pairs):
-        e1[i, l] = 1.0
-        e2[j, l] = 1.0
-    for j in range(d):
-        e1[d, n_ut + j] = 1.0  # ones-column of x_aug -> A = 1
-        e2[j, n_ut + j] = 1.0  # -> S = x_j
-    e1[d, n_ut + d] = 1.0
-    e2[d, n_ut + d] = 1.0      # -> S = 1
-    # numpy out (converted per call site): caching jnp arrays created
-    # inside a jit trace leaks tracers.
-    tiled1 = np.concatenate([e1, e1, e1], axis=0)
-    tiled2 = np.concatenate([e2, e2, e2], axis=0)
-    return tiled1, tiled2
-
-
-@functools.cache
-def _ut_unpack_index(d: int):
-    """(d*d,) index into the ut lane order reconstructing the full xx^T."""
-    import numpy as np
-
-    pos = {}
-    for l, (i, j) in enumerate(_ut_pairs(d)):
-        pos[(i, j)] = l
-        pos[(j, i)] = l
-    return np.array([pos[(i, j)] for i in range(d) for j in range(d)],
-                    np.int32)
-
-
-def _split3_bf16(x):
-    """Three bf16 limbs summing exactly to f32 ``x`` (24 mantissa bits)."""
-    hi = x.astype(jnp.bfloat16)
-    r1 = x - hi.astype(jnp.float32)
-    mid = r1.astype(jnp.bfloat16)
-    lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, mid, lo
-
-
-def _gmm_pack_inputs(x, e_stats, log_w, dim: int):
-    """Host/XLA-side packing for the fused kernel (all O(K*D^2) or O(T*D))."""
-    d = dim
-    pairs = _ut_pairs(d)
-    n_ut = len(pairs)
-    elam = e_stats[:, : d * d]                       # (K, D^2) E[Lam]
-    elin = e_stats[:, d * d : d * d + d]             # (K, D)
-    const = (-0.5 * e_stats[:, -2] + 0.5 * e_stats[:, -1]
-             - 0.5 * d * LOG_2PI + log_w)            # (K,)
-    rows = []
-    for (i, j) in pairs:
-        w = elam[:, i * d + j] * (1.0 if i == j else 2.0)
-        rows.append(-0.5 * w)
-    w_mat = jnp.stack(rows + [elin[:, j] for j in range(d)] + [const])  # (L, K)
-
-    ones = jnp.ones(x.shape[:-1] + (1,), x.dtype)
-    x_aug = jnp.concatenate([x, ones], axis=-1)      # (T, D+1)
-    hi, mid, lo = _split3_bf16(x_aug)
-    xcat = jnp.concatenate([hi, mid, lo], axis=-1)   # (T, 3(D+1)) bf16
-    return xcat, w_mat, n_ut
-
-
-def _gmm_estep_kernel(xcat_ref, m_ref, e1_ref, e2_ref, w_ref,
-                      llh_ref, acc_ref, a_acc):
-    @pl.when(pl.program_id(0) == 0)
-    def _():
-        a_acc[:] = jnp.zeros_like(a_acc)
-
-    f32 = jnp.float32
-    hi = jax.lax.Precision.HIGHEST
-    xcat = xcat_ref[:]                                   # (Tt, 3(D+1)) bf16
-    a = jnp.dot(xcat, e1_ref[:], preferred_element_type=f32)
-    b = jnp.dot(xcat, e2_ref[:], preferred_element_type=f32)
-    s = a * b                                            # (Tt, L) exact f32
-    joint = jnp.dot(s, w_ref[:], preferred_element_type=f32,
-                    precision=hi)                        # (Tt, K)
-    msk = m_ref[:]
-    m = jnp.max(joint, axis=-1, keepdims=True)
-    p = jnp.exp(joint - m)
-    ssum = jnp.sum(p, axis=-1, keepdims=True)
-    llh_ref[:] = (m + jnp.log(ssum)) * msk
-    r = (p / ssum) * msk                                 # (Tt, K)
-    dn = (((0,), (0,)), ((), ()))
-    # HIGHEST (bf16_6x, ~2^-24 products) is the accumulation's floor:
-    # 16-bit-limb paths (~2^-16) measurably oscillate the VB ELBO
-    # (docs/PERFORMANCE.md round-4 table), 3-pass lands at ~2^-16 too
-    # (drops lo·lo), and Mosaic rejects Precision.HIGH in-kernel
-    # ("Unsupported dot precision") besides.
-    a_acc[:] += jax.lax.dot_general(r, s, dn, precision=hi,
-                                    preferred_element_type=f32)
-
-    @pl.when(pl.program_id(0) == pl.num_programs(0) - 1)
-    def _():
-        acc_ref[:] = a_acc[:]
-
-
-def fused_gmm_estep(x, e_stats, log_w, dim: int, mask=None,
-                    interpret: bool = False):
-    """One-kernel GMM E-step: (T, D) frames -> per-frame log-marginal
-    llh (T,) and accumulated natural statistics.
-
-    Returns ``(llh, acc, counts)`` with ``acc`` (K, D^2+D+2) in the
-    NormalWishart natural layout and ``counts`` (K,) the responsibility
-    mass per component (for the weight model update).
-    """
-    d, k = dim, e_stats.shape[0]
-    xcat, w_mat, n_ut = _gmm_pack_inputs(x, e_stats, log_w, d)
-    L = n_ut + d + 1
-    e1_np, e2_np = _gmm_selectors(d)
-    e1 = jnp.asarray(e1_np, jnp.bfloat16)
-    e2 = jnp.asarray(e2_np, jnp.bfloat16)
-    tile = GMM_TILE_T
-    xcat_p, t = _pad_time(xcat, tile)
-    if mask is None:
-        mask = jnp.ones((t, 1), jnp.float32)
-    else:
-        mask = mask.reshape(t, 1).astype(jnp.float32)
-    mask_p, _ = _pad_time(mask, tile)
-    grid = (xcat_p.shape[0] // tile,)
-    llh, acc_raw = pl.pallas_call(
-        _gmm_estep_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile, xcat.shape[1]), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((e1.shape[0], L), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((e2.shape[0], L), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((L, k), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((k, L), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((xcat_p.shape[0], 1), jnp.float32),
-            jax.ShapeDtypeStruct((k, L), jnp.float32),
-        ],
-        scratch_shapes=[pltpu.VMEM((k, L), jnp.float32)],
-        interpret=interpret,
-    )(xcat_p, mask_p, e1, e2, w_mat)
-    acc_s = acc_raw
-    acc_xx = acc_s[:, jnp.asarray(_ut_unpack_index(d))]  # (K, D^2)
-    acc_x = acc_s[:, n_ut : n_ut + d]
-    counts = acc_s[:, n_ut + d]
-    c = counts[:, None]
-    acc = jnp.concatenate([-0.5 * acc_xx, acc_x, -0.5 * c, 0.5 * c], axis=1)
-    return llh[:t, 0], acc, counts
-
-
 def gmm_estep_xla(x, e_stats, log_w, dim: int, mask=None):
-    """Exact jnp fallback (CPU path and custom-vjp backward reference)."""
+    """One GMM E-step from raw frames: (per-frame log-marginals,
+    (K, P) statistics, (K,) counts)."""
     llh_k = ellh_full_xla(x, e_stats, dim)               # (T, K)
     joint = llh_k + log_w
     llh = jax.scipy.special.logsumexp(joint, axis=-1)
@@ -397,26 +58,3 @@ def gmm_estep_xla(x, e_stats, log_w, dim: int, mask=None):
     acc = accumulate_full_xla(x, r)
     counts = r.sum(0)
     return llh, acc, counts
-
-
-# ----------------------------------------------------------------------
-# Dispatch policy
-# ----------------------------------------------------------------------
-@functools.cache
-def on_tpu() -> bool:
-    # explicit: these kernels are TPU-only (pltpu.VMEM BlockSpecs); a
-    # CUDA/ROCm backend must take the jnp fallback, not crash.
-    return jax.default_backend() == "tpu"
-
-
-def use_fused_full(dim: int, ncomp: int) -> bool:
-    """Heuristic: worth fusing when the (T, P) materialization the exact
-    path would stream is big and the per-tile VMEM footprint fits.  The
-    single-kernel E-step holds the ut-packed S tile (GMM_TILE_T, L) in
-    f32 plus the (L, K) weights and (K, L) accumulator, L = D(D+1)/2 +
-    D + 1 — roughly half the old full-(T, D²) estimate."""
-    lanes = dim * (dim + 1) // 2 + dim + 1
-    vmem_bytes = 4 * (GMM_TILE_T * lanes + 2 * ncomp * lanes)
-    return (
-        on_tpu() and 8 <= dim <= 64 and vmem_bytes < 8 * 1024 * 1024
-    )

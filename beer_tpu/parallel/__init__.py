@@ -3,10 +3,10 @@
 Reference parity: the reference's only scale-out is Kaldi-style
 file-based map-reduce over SGE job arrays (``recipes/*/utils/parallel``,
 SURVEY.md §2.10): shard the utterance list, accumulate statistics per
-job, sum the statistics files, apply one conjugate update.  The TPU-native
-equivalent is *mathematically identical* but on-chip: ``shard_map`` over a
-1-D ``data`` mesh axis, one ``psum`` of the statistics pytree over ICI
-per step.  Because VB-EM synchronizes once per (mini)batch on O(K·D²)
+job, sum the statistics files, apply one conjugate update.  The on-device
+equivalent is *mathematically identical*: ``shard_map`` over a
+1-D ``data`` mesh axis, one ``psum`` of the statistics pytree over the
+device interconnect per step.  Because VB-EM synchronizes once per (mini)batch on O(K·D²)
 statistics (not O(model)), communication is trivially cheap.
 
 Exposed as a first-class module so single-host and multi-host recipes

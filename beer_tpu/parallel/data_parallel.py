@@ -2,7 +2,8 @@
 
 The E-step is embarrassingly parallel over utterances; the statistics
 pytree is a fixed small size (O(components · stats_dim)), so one ``psum``
-over ICI per step replaces the reference's stats-file reduce exactly
+over the device interconnect per step replaces the reference's
+stats-file reduce exactly
 (same sum, different wire).  After the psum every shard applies the same
 deterministic conjugate update, so parameters stay replicated without a
 broadcast.
@@ -46,7 +47,7 @@ def shard_batch(x, n_shards: int):
 def data_parallel_elbo_and_stats(
     model, x, mask, axis_name: str = "data", datascale: float = 1.0
 ):
-    """Runs INSIDE shard_map: local E-step, psum of (llh, stats) over ICI.
+    """Runs INSIDE shard_map: local E-step, psum of (llh, stats) over the mesh.
 
     ``mask`` zeroes padded utterances *and* padded frames.  The KL term is
     computed once from the (replicated) parameters — outside the psum.

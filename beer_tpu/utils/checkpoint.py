@@ -5,20 +5,21 @@ pickles (``.mdl`` files) at creation and per training epoch, and the CLI
 ``train`` resumes from the latest epoch file (SURVEY.md §5.4).
 
 A beer_tpu model is a pure pytree of arrays + static metadata, so a
-checkpoint is ``flax.serialization.to_bytes`` of the arrays next to a
-pickled *skeleton* (the model with arrays stripped) that rebuilds the
+checkpoint is an ``np.savez`` archive of the leaves next to a pickled
+*skeleton* (the model with arrays stripped) that rebuilds the
 structure.  Exact resume is trivial: the conjugate update is
 deterministic given statistics.
 """
 
 from __future__ import annotations
 
+import io
 import pickle
 from pathlib import Path
 
 import jax
 import jax.numpy as jnp
-from flax import serialization
+import numpy as np
 
 
 class _StrippedLeaf:
@@ -38,9 +39,11 @@ def save_model(model, path) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     leaves, treedef = jax.tree.flatten(model)
     skeleton = jax.tree.unflatten(treedef, [_LEAF] * len(leaves))
+    arrays = io.BytesIO()
+    np.savez(arrays, *[np.asarray(leaf) for leaf in leaves])
     payload = {
         "skeleton": pickle.dumps(skeleton),
-        "arrays": serialization.to_bytes([jnp.asarray(leaf) for leaf in leaves]),
+        "arrays": arrays.getvalue(),
     }
     with open(path, "wb") as fh:
         pickle.dump(payload, fh)
@@ -53,14 +56,9 @@ def load_model(path):
     leaves, treedef = jax.tree.flatten(
         skeleton, is_leaf=lambda x: isinstance(x, _StrippedLeaf)
     )
-    if not leaves:  # legacy checkpoint: leaves were stripped to None
-        leaves, treedef = jax.tree.flatten(
-            skeleton, is_leaf=lambda x: x is None
-        )
-    template = [jnp.zeros(()) for _ in leaves]
-    arrays = serialization.from_bytes(template, payload["arrays"])
-    # from_bytes yields numpy arrays; promote so loaded models jit cleanly
-    return jax.tree.unflatten(treedef, [jnp.asarray(a) for a in arrays])
+    with np.load(io.BytesIO(payload["arrays"])) as arrays:
+        values = [arrays[f"arr_{i}"] for i in range(len(leaves))]
+    return jax.tree.unflatten(treedef, [jnp.asarray(a) for a in values])
 
 
 def latest_checkpoint(directory, pattern: str = "epoch*.mdl"):

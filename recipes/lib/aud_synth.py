@@ -3,7 +3,7 @@
 Reference context: the SHMM (Interspeech'19) / H-SHMM (ICASSP'21) papers
 evaluate acoustic unit discovery on real low-resource speech; with no
 network access the recipes use this generator instead, built to be
-*adversarial* rather than a toy tone grid (VERDICT r2):
+*adversarial* rather than a toy tone grid:
 
 * a latent inventory of pseudo-phones, each a 3-sub-state formant
   *trajectory* (onset → steady → offset toward a neutral schwa) — real
@@ -95,7 +95,7 @@ def _babble(rng, n, n_talkers=6):
 
 
 def harden_utterance(rng, sig):
-    """Real-corpus channel/noise degradations (VERDICT r4 ask #8):
+    """Real-corpus channel/noise degradations:
 
     * room IR convolution — exponential-decay reverb, τ ∈ [5, 30] ms
       (truncated to signal length so frame labels stay aligned);

@@ -9,9 +9,17 @@
 # for beer_tpu: `beer hmm accumulate --shard j/N` jobs in parallel, then
 # one `beer hmm update`.  Exact full-batch VB-EM — identical math to
 # `beer hmm train` — for corpora spread over processes/hosts that do NOT
-# share a device mesh (on-chip dp via beer_tpu/parallel is the fast path
-# when they do).  Stage-gated per epoch: rerunning resumes from the
+# share a device mesh.  Stage-gated per epoch: rerunning resumes from the
 # latest epochNNNN.mdl like `beer hmm train`.
+#
+# Devices: this script never starts more than one JAX process per GPU.
+# A JAX process reserves most of a card's memory when it starts, so a
+# second process on the same card fails.  Local fan-out jobs therefore
+# run with --device cpu, unless there are no more jobs than cards: then
+# job j runs alone on card j-1 (CUDA_VISIBLE_DEVICES).  SGE tasks run on
+# the CPU.  On a GPU host the recommended route is the in-process
+# data-parallel `beer hmm train`, which drives every card of the host
+# from one process.  BEER_DEVICE=cpu keeps every job on the CPU.
 #
 # Usage: parallel_vbem.sh <init.mdl> <feats> <workdir> <njobs> <epochs> [lrate]
 #
@@ -25,14 +33,21 @@
 set -euo pipefail
 
 model=$1 feats=$2 work=$3 njobs=$4 epochs=$5 lrate=${6:-1.0}
-# Host-level shard fan-out is the CPU path by design: N concurrent jobs
-# must not race for the single exclusive TPU backend. Export BEER_DEVICE
-# explicitly to override (e.g. njobs=1 on a dedicated chip).
-BEER_DEVICE=${BEER_DEVICE:-cpu}
+BEER_DEVICE=${BEER_DEVICE:-auto}
 BEER_PARALLEL=${BEER_PARALLEL:-local}
 SGE_OPTS=${SGE_OPTS:-}
-beer() { python -m beer_tpu.cli "$@" ${BEER_DEVICE:+--device "$BEER_DEVICE"}; }
+beer() { python -m beer_tpu.cli "$@"; }
 mkdir -p "$work"
+
+ncards=0
+if [ "$BEER_DEVICE" != cpu ] && [ "$BEER_PARALLEL" = local ] \
+        && command -v nvidia-smi > /dev/null; then
+    ncards=$(nvidia-smi -L 2> /dev/null | grep -c '^GPU' || true)
+fi
+job_device=cpu
+if [ "$ncards" -gt 0 ] && [ "$njobs" -le "$ncards" ]; then
+    job_device=gpu
+fi
 
 if [ "$BEER_PARALLEL" = sge ] && ! command -v qsub > /dev/null; then
     echo "parallel_vbem.sh: BEER_PARALLEL=sge but qsub not found" >&2
@@ -47,11 +62,10 @@ run_shards() { # <epoch>: fan out njobs accumulate jobs, wait for all
             echo '#!/usr/bin/env bash'
             echo 'set -euo pipefail'
             printf 'cd %q\n' "$(pwd)"
-            printf 'export BEER_DEVICE=%q\n' "$BEER_DEVICE"
             printf 'python -m beer_tpu.cli hmm accumulate %q %q ' \
                 "$current" "$feats"
             printf '%q/epoch%s.$SGE_TASK_ID.acc ' "$work" "$epoch"
-            printf -- '--shard "$SGE_TASK_ID/%s" --device "$BEER_DEVICE"\n' \
+            printf -- '--shard "$SGE_TASK_ID/%s" --device cpu\n' \
                 "$njobs"
         } > "$script"
         chmod +x "$script"
@@ -63,9 +77,17 @@ run_shards() { # <epoch>: fan out njobs accumulate jobs, wait for all
     else
         local pids=() j
         for j in $(seq 1 "$njobs"); do
-            beer hmm accumulate "$current" "$feats" \
-                "$work/epoch$epoch.$j.acc" --shard "$j/$njobs" \
-                > "$work/accumulate.$epoch.$j.log" 2>&1 &
+            if [ "$job_device" = gpu ]; then
+                CUDA_VISIBLE_DEVICES=$((j - 1)) beer hmm accumulate \
+                    "$current" "$feats" "$work/epoch$epoch.$j.acc" \
+                    --shard "$j/$njobs" --device gpu \
+                    > "$work/accumulate.$epoch.$j.log" 2>&1 &
+            else
+                beer hmm accumulate "$current" "$feats" \
+                    "$work/epoch$epoch.$j.acc" --shard "$j/$njobs" \
+                    --device cpu \
+                    > "$work/accumulate.$epoch.$j.log" 2>&1 &
+            fi
             pids+=($!)
         done
         for pid in "${pids[@]}"; do wait "$pid"; done
@@ -99,7 +121,7 @@ for epoch in $(seq $((start + 1)) "$epochs"); do
     run_shards "$epoch"
     next=$(printf '%s/epoch%04d.mdl' "$work" "$epoch")
     beer hmm update "$current" "$next" \
-        "$work"/epoch"$epoch".*.acc --lrate "$lrate"
+        "$work"/epoch"$epoch".*.acc --lrate "$lrate" --device "$BEER_DEVICE"
     rm -f "$work"/epoch"$epoch".*.acc
     current=$next
 done

@@ -1,6 +1,6 @@
 """K-means frame-clustering baseline for AUD scoring.
 
-The weakest credible AUD baseline (VERDICT r2: score recipes against a
+The weakest credible AUD baseline (recipes are scored against a
 k-means-on-frames floor): Lloyd's algorithm on the *training* features,
 per-frame cluster assignment on the *eval* features, labels written in
 the ali format ``score.py`` consumes.  No temporal model — any HMM-based

@@ -19,12 +19,8 @@
 # trails the k-means frame floor — that is the low-resource premise the
 # subspace transfer exists to fix).  Measured on from-scratch runs of
 # this script (seed 0): CPU f32 — k-means 35.8, baseline 34.5, H-SHMM
-# 41.0 NMI (boundary-F 50.8 -> 59.0); TPU v5e f32 (round-4 defaults:
-# corrected write-back bands, one-dispatch subspace scan, kernel
-# Viterbi decode) — k-means 35.8, baseline 34.5, H-SHMM 41.4 NMI
-# (boundary-F 60.2); round-3 TPU measured 41.6 with the (since-fixed)
-# stale-bands E-step.  Subspace sharing with the resourced languages
-# recovers what 4 utterances cannot.
+# 41.0 NMI (boundary-F 50.8 -> 59.0).  Subspace sharing with the
+# resourced languages recovers what 4 utterances cannot.
 #
 # Seed sensitivity (./sweep.sh 3, fresh corpus draw per seed, CPU f32,
 # round-4 scanned stage 7): H-SHMM 37.9 NMI mean (range 34.6-41.3) vs

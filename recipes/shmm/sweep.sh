@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Seed sensitivity of the H-SHMM transfer claim (VERDICT r3 weak #5):
+# Seed sensitivity of the H-SHMM transfer claim:
 # rerun the full recipe on freshly drawn corpora (SEED=0..N-1) and
 # assert the two BEATS margins hold for EVERY seed, then print
 # mean +/- range per system.  Model-init keys are fixed inside the

@@ -335,44 +335,3 @@ def test_auto_streaming_when_monolith_too_big(workdir, tmp_path):
     for a, b in zip(jax.tree.leaves(m_full), jax.tree.leaves(m_auto)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=2e-4,
                                    atol=1e-5)
-
-
-def test_tpu_probe_cache_and_fallback(tmp_path, monkeypatch, capsys):
-    """_tpu_reachable caches probe results on disk (neg 5 min TTL) and
-    _apply_device falls back to CPU on auto, errors on explicit tpu."""
-    import subprocess
-    import tempfile
-    import types
-
-    import importlib
-
-    cli_main = importlib.import_module("beer_tpu.cli.main")
-
-    monkeypatch.setattr(tempfile, "gettempdir", lambda: str(tmp_path))
-    calls = {"n": 0}
-
-    def fake_run(*a, **k):
-        calls["n"] += 1
-        raise subprocess.TimeoutExpired(cmd="probe", timeout=1)
-
-    monkeypatch.setattr(subprocess, "run", fake_run)
-    monkeypatch.setattr(cli_main, "_platform_pinned_cpu", lambda: False)
-    assert cli_main._tpu_reachable(timeout=0.01) is False
-    # second call served from the negative cache — no new subprocess
-    assert cli_main._tpu_reachable(timeout=0.01) is False
-    assert calls["n"] == 1
-
-    # auto → warn + fall back to CPU
-    args = types.SimpleNamespace(group="hmm", command="train", device="auto")
-    cli_main._apply_device(args)
-    assert "falling back to CPU" in capsys.readouterr().err
-
-    # explicit tpu → clear SystemExit
-    args = types.SimpleNamespace(group="hmm", command="train", device="tpu")
-    with pytest.raises(SystemExit):
-        cli_main._apply_device(args)
-
-    # BEER_NO_TPU_PROBE skips probing entirely
-    monkeypatch.setenv("BEER_NO_TPU_PROBE", "1")
-    assert cli_main._tpu_reachable(timeout=0.01) is True
-    assert calls["n"] == 1

@@ -85,8 +85,8 @@ def _oracle_fbank(sig, conf):
 
 
 def test_fbank_robust_to_degraded_waveforms(rng):
-    """Frontend robustness on real-corpus pathologies (VERDICT r4 ask
-    #8): hard-clipped, DC-offset, and near-silent waveforms must stay
+    """Frontend robustness on real-corpus pathologies:
+    hard-clipped, DC-offset, and near-silent waveforms must stay
     finite and keep tracking the numpy oracle — the log-floor, the
     pre-emphasis and the windowing are where naive frontends blow up."""
     conf = features.FeatureConfig(

@@ -102,43 +102,45 @@ def test_minibatch_scaling(rng):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-10)
 
 
-def test_ellh_matrix_affine_form(rng):
-    """NormalSet.ellh_matrix: expected_log_likelihood(stats) ==
-    stats @ W + bias for the diagonal reduced-stats layout."""
-    data = make_data(rng, n=90)
-    nset = beer_tpu.NormalSet.create(
+def _full_nset(data, k=5):
+    return beer_tpu.NormalSet.create(
         jnp.asarray(data.mean(0)), jnp.asarray(np.cov(data.T)),
-        size=5, cov_type="diagonal", noise_std=1.0,
+        size=k, cov_type="full", noise_std=1.0,
         key=jax.random.PRNGKey(1),
     )
-    stats = nset.sufficient_statistics(jnp.asarray(data))
-    w, bias = nset.ellh_matrix()
-    affine = stats @ w + bias
-    ref = nset.expected_log_likelihood(stats)
-    np.testing.assert_allclose(np.asarray(affine), np.asarray(ref),
+
+
+def test_raw_frame_ellh_matches_materialized(rng):
+    """stats_kernels.ellh_full_xla scores raw frames exactly like the
+    materialized full-covariance statistics path."""
+    from beer_tpu.ops import stats_kernels
+
+    data = make_data(rng, n=90)
+    nset = _full_nset(data)
+    x = jnp.asarray(data)
+    e_stats = nset.means_precisions.expected_sufficient_statistics()
+    got = stats_kernels.ellh_full_xla(x, e_stats, nset.dim)
+    ref = nset.expected_log_likelihood(nset.sufficient_statistics(x))
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                rtol=1e-10, atol=1e-10)
 
 
-def test_accumulate_from_moments_matches_accumulate(rng):
-    """NormalSet.accumulate_from_moments(Σ resps⊗stats, Σ resps) ==
-    accumulate(stats, resps) — the γ-fused kernel's contract."""
+def test_raw_frame_accumulate_matches_materialized(rng):
+    """stats_kernels.accumulate_full_xla == NormalSet.accumulate on the
+    materialized statistics."""
+    from beer_tpu.ops import stats_kernels
+
     data = make_data(rng, n=90)
-    nset = beer_tpu.NormalSet.create(
-        jnp.asarray(data.mean(0)), jnp.asarray(np.cov(data.T)),
-        size=5, cov_type="diagonal", noise_std=1.0,
-        key=jax.random.PRNGKey(1),
-    )
-    stats = nset.sufficient_statistics(jnp.asarray(data))
+    nset = _full_nset(data)
+    x = jnp.asarray(data)
     resps = jax.nn.softmax(
         jnp.asarray(rng.normal(size=(len(data), 5))), axis=-1
     )
-    ref = nset.accumulate(stats, resps)
-    acc2 = jnp.einsum("tk,tp->kp", resps, stats,
-                      precision=jax.lax.Precision.HIGHEST)
-    got = nset.accumulate_from_moments(acc2, resps.sum(0))
-    for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(got)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-12, atol=1e-12)
+    ref = nset.accumulate(nset.sufficient_statistics(x), resps)
+    got = stats_kernels.accumulate_full_xla(x, resps)
+    np.testing.assert_allclose(np.asarray(got),
+                               np.asarray(ref["means_precisions"]),
+                               rtol=1e-10, atol=1e-10)
 
 
 def test_recovers_clusters(rng):
@@ -155,7 +157,7 @@ def test_recovers_clusters(rng):
 class TestTorchParity:
     """ELBO trajectory parity vs the independent torch implementation.
 
-    BASELINE target: ≤ 1e-4/frame on TPU f32; here both sides run f64 on
+    BASELINE target: ≤ 1e-4/frame in f32; here both sides run f64 on
     CPU so agreement must be much tighter.
     """
 
@@ -232,9 +234,8 @@ def test_coordinate_ascent_monotone(rng):
 
 
 def test_fused_mixture_posteriors_and_cpu_fallback(rng):
-    """A Mixture whose NormalSet carries fused=True (e.g. a TPU-created
-    checkpoint restored on CPU) must still infer through the exact
-    route off-TPU, and posteriors() must work without a resps cache."""
+    """A full-covariance Mixture's posteriors() equal the responsibilities
+    that infer() caches, and sum to one."""
     import jax
     import jax.numpy as jnp
 
@@ -245,8 +246,7 @@ def test_fused_mixture_posteriors_and_cpu_fallback(rng):
     nset = beer_tpu.NormalSet.create(
         jnp.zeros(d), jnp.eye(d), size=k, cov_type="full",
         noise_std=0.5, key=jax.random.PRNGKey(0))
-    gmm = beer_tpu.Mixture.create(nset.replace(fused=True))
-    assert not gmm._fused_gmm()  # CPU: runtime gate closes the kernel route
+    gmm = beer_tpu.Mixture.create(nset)
     llh, cache = gmm.infer(gmm.sufficient_statistics(x))
     assert "resps" in cache
     post = gmm.posteriors(x)
@@ -256,18 +256,13 @@ def test_fused_mixture_posteriors_and_cpu_fallback(rng):
 
 
 def test_fused_route_trajectory_tracks_exact(rng):
-    """VB-EM through the fused single-kernel route (interpret mode) must
-    TRACK the exact route — pointwise ELBO drift small and monotone —
-    on clustered data with sharpening precisions.  This is the CPU-scale
-    version of the on-chip gate (tools/exp_gmm_traj_check.py) that
-    caught the retracted bf16-limb-packed kernels (round 4)."""
-    import functools
-
+    """VB-EM driven by the raw-frame E-step (stats_kernels.gmm_estep_xla)
+    must TRACK the materialized vb_step route — pointwise ELBO drift
+    small and monotone — on clustered data with sharpening precisions."""
     import jax
     import jax.numpy as jnp
 
     import beer_tpu
-    from beer_tpu.models import mixture as mixture_mod
     from beer_tpu.ops import stats_kernels
     from beer_tpu.vbi import vb_step
 
@@ -276,29 +271,30 @@ def test_fused_route_trajectory_tracks_exact(rng):
     x = jnp.asarray((centers[rng.integers(0, 4, size=t)]
                      + rng.normal(size=(t, d))).astype(np.float32))
 
-    orig_kernel = stats_kernels.fused_gmm_estep
-    orig_gate = mixture_mod.Mixture._fused_gmm
-    try:
-        stats_kernels.fused_gmm_estep = functools.partial(
-            orig_kernel, interpret=True)
-        trajs = {}
-        for fused in (True, False):
-            mixture_mod.Mixture._fused_gmm = (
-                (lambda self: True) if fused else orig_gate)
-            nset = beer_tpu.NormalSet.create(
-                jnp.zeros(d), jnp.eye(d), size=k, cov_type="full",
-                noise_std=0.5, key=jax.random.PRNGKey(2))
-            gmm = beer_tpu.Mixture.create(nset.replace(fused=fused))
-            elbos = []
-            for _ in range(10):
-                e, gmm = vb_step(gmm, x)
-                elbos.append(float(e) / t)
-            trajs[fused] = np.array(elbos)
-            # monotone after burn-in
-            drops = np.diff(elbos[2:])
-            assert drops.min() > -1e-3, elbos
-        drift = np.abs(trajs[True] - trajs[False]).max()
-        assert drift <= 1e-4, drift
-    finally:
-        stats_kernels.fused_gmm_estep = orig_kernel
-        mixture_mod.Mixture._fused_gmm = orig_gate
+    def raw_frame_step(gmm):
+        ms = gmm.modelset
+        e_stats = ms.means_precisions.expected_sufficient_statistics()
+        llh, acc, counts = stats_kernels.gmm_estep_xla(
+            x, e_stats, gmm.categorical.expected_log_weights(), ms.dim)
+        elbo = llh.sum() - gmm.kl_div_posterior_prior()
+        return elbo, gmm.vb_update({
+            "categorical": gmm.categorical.accumulate_counts(counts),
+            "modelset": {"means_precisions": acc},
+        })
+
+    trajs = {}
+    for raw in (True, False):
+        nset = beer_tpu.NormalSet.create(
+            jnp.zeros(d), jnp.eye(d), size=k, cov_type="full",
+            noise_std=0.5, key=jax.random.PRNGKey(2))
+        gmm = beer_tpu.Mixture.create(nset)
+        elbos = []
+        for _ in range(10):
+            e, gmm = raw_frame_step(gmm) if raw else vb_step(gmm, x)
+            elbos.append(float(e) / t)
+        trajs[raw] = np.array(elbos)
+        # monotone after burn-in
+        drops = np.diff(elbos[2:])
+        assert drops.min() > -1e-3, elbos
+    drift = np.abs(trajs[True] - trajs[False]).max()
+    assert drift <= 1e-4, drift

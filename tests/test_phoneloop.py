@@ -236,15 +236,13 @@ def test_structured_trans_after_transition_writeback(rng):
                                rtol=1e-6, atol=1e-7)
 
 
-def test_viterbi_kernel_exit_argmax_over_256(monkeypatch):
-    """Regression: the kernel forward stored the per-step exit argmax
-    bf16, exact only to 256 — a loop-back whose best exit state is odd
-    and > 256 (e.g. state 269 of a 90-unit x 3-state loop) backtraced
-    through the wrong state.  Crafted llh climbs unit 89 (267-269) /
-    unit 87 (261-263), then loops back into unit 0, so the stored exit
-    argmax is 269 / 263 (both bf16-unrepresentable).  Kernel route
-    (interpret) must match the dense XLA viterbi exactly."""
-    from beer_tpu.ops import pallas_scan, semiring_scan
+def test_viterbi_kernel_exit_argmax_over_256():
+    """A loop-back whose best exit state is odd and > 256 (state 269 of
+    a 90-unit x 3-state loop; an exit argmax stored in bf16 is exact
+    only to 256) must backtrace through the right state.  Crafted llh
+    climbs unit 89 (267-269) / unit 87 (261-263), then loops back into
+    unit 0.  The banded route must match the dense viterbi exactly."""
+    from beer_tpu.ops import semiring_scan
 
     units, spu = 90, 3
     s = units * spu
@@ -266,7 +264,6 @@ def test_viterbi_kernel_exit_argmax_over_256(monkeypatch):
     paths_d, score_d = semiring_scan.viterbi(
         jnp.asarray(llh), graph.log_trans, graph.log_init,
         graph.log_final, m)
-    monkeypatch.setattr(pallas_scan, "FORCE_INTERPRET", True)
     paths_k, score_k = semiring_scan.viterbi_banded(
         jnp.asarray(llh), bands, graph.log_init, graph.log_final, m)
     np.testing.assert_allclose(np.asarray(score_k),
@@ -280,16 +277,14 @@ def test_viterbi_kernel_exit_argmax_over_256(monkeypatch):
                                   [261, 262, 263, 0])
 
 
-def test_viterbi_fwd_kernel_matches_xla(rng, monkeypatch):
-    """The Pallas (max,+) forward (interpret mode) must give the same
-    paths and scores as the XLA banded route."""
-    from beer_tpu.ops import pallas_scan, semiring_scan
+def test_viterbi_fwd_kernel_matches_xla(rng):
+    """PhoneLoop.decode (the banded (max,+) route) must give the same
+    paths and scores as the dense viterbi on the effective graph."""
+    from beer_tpu.ops import semiring_scan
 
     data, _, mask, _ = make_aud_data(rng, n_seq=5, t_len=40, d=2)
     data = data.astype(np.float32)
     mask = mask.astype(np.float32)
-    # >= 64 states: below that viterbi_banded skips the kernel branch
-    # (measured slower than dense at small S)
     nset = beer_tpu.NormalSet.create(
         jnp.zeros(2), jnp.eye(2), size=22 * 3, cov_type="diagonal",
         noise_std=0.7, key=jax.random.PRNGKey(4))
@@ -298,9 +293,12 @@ def test_viterbi_fwd_kernel_matches_xla(rng, monkeypatch):
         _, loop = vb_step(loop, jnp.asarray(data), mask=jnp.asarray(mask))
     x, m = jnp.asarray(data), jnp.asarray(mask)
 
-    paths_x, score_x = loop.decode(x, m)      # CPU: XLA route
-    monkeypatch.setattr(pallas_scan, "FORCE_INTERPRET", True)
-    paths_k, score_k = loop.decode(x, m)      # kernel route (interpret)
+    graph = loop._effective_graph()
+    llh = loop.modelset.expected_log_likelihood(
+        loop.sufficient_statistics(x))
+    paths_x, score_x = semiring_scan.viterbi(
+        llh, graph.log_trans, graph.log_init, graph.log_final, m)
+    paths_k, score_k = loop.decode(x, m)
     np.testing.assert_allclose(np.asarray(score_k), np.asarray(score_x),
                                rtol=1e-5, atol=1e-4)
     valid = np.asarray(m) > 0
